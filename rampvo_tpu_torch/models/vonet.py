@@ -1,0 +1,124 @@
+"""VONet: encoder + update operator, and the parameter-free patch selection
+and extraction (port of rampvo_tpu/models/vonet.py; ref ramp/net.py).
+
+`VONet` holds `patchify.encoder` and `update` under the reference's module
+names, so its `state_dict()` keys are the published .pth keys. Feature maps
+are channels-last [n, h, w, C]; patches channels-first [n, M, 3, P, P].
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.corr import avg_pool2d, patchify as gather_patches
+from .encoders import MultiScaleEncoder
+from .update import Update
+
+class Patchifier(nn.Module):
+    """Encoder holder (ref net.py:128-157); MultiScale only."""
+
+    def __init__(self, evs_ch: int = 5, img_ch: int = 3):
+        super().__init__()
+        self.encoder = MultiScaleEncoder(evs_ch, img_ch)
+
+
+class VONet(nn.Module):
+    def __init__(self, input_mode: str = "MultiScale", evs_ch: int = 5,
+                 img_ch: int = 3, P: int = 3):
+        super().__init__()
+        if input_mode != "MultiScale":
+            raise NotImplementedError(
+                "the port runs the MultiScale encoder only")
+        self.patchify = Patchifier(evs_ch, img_ch)
+        self.update = Update(P)
+
+
+def init_weights(net: nn.Module, generator: torch.Generator):
+    """Seeded random initialisation of every parameter from `generator`
+    (for runs without a checkpoint): convolutions and linears normal with
+    variance 1/fan_in (2/fan_out for 3x3+ convolutions, the heads'
+    kaiming), LSTMs uniform(+-1/sqrt(h)), norms and biases at identity."""
+    with torch.no_grad():
+        for name, mod in sorted(net.named_modules()):
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                w = mod.weight
+                if isinstance(mod, nn.Conv2d) and w.shape[-1] > 1:
+                    std = math.sqrt(2.0 / (w.shape[0] * w.shape[2] * w.shape[3]))
+                else:
+                    std = math.sqrt(1.0 / w[0].numel())
+                w.copy_(torch.randn(w.shape, generator=generator) * std)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LSTM):
+                k = 1.0 / math.sqrt(mod.hidden_size)
+                for p in mod.parameters():
+                    p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * k)
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+    return net
+
+
+# ---------------------------------------------------------------------------
+# patch coordinate selection (parameter-free)
+# ---------------------------------------------------------------------------
+
+def nms_2d(x, kernel_size: int):
+    """Keep values equal to their local max (ref utils.py:157-182).
+    x [n, H, W]."""
+    pad = (kernel_size - 1) // 2
+    mx = F.max_pool2d(x[:, None], kernel_size, stride=1, padding=pad)[:, 0]
+    return x * (mx == x).to(x.dtype)
+
+
+def select_coords_event_bias(events, M: int, nms_rad: int = 11):
+    """Top-M event-density locations at 1/4 resolution (ref
+    utils.py:186-226, integer row/col split). events [n, H, W, C] ->
+    coords [n, M, 2] float (x, y). Ties go to the lower flat index, like
+    jax.lax.top_k (a stable descending sort)."""
+    ev = avg_pool2d(events.abs(), 4).mean(dim=-1)         # [n, h, w]
+    if nms_rad:
+        ev = nms_2d(ev, nms_rad)
+    n, h, w = ev.shape
+    idx = torch.sort(ev.reshape(n, h * w), dim=1, descending=True,
+                     stable=True).indices[:, :M]
+    y = torch.div(idx, w, rounding_mode="floor").float()
+    x = (idx % w).float()
+    return torch.stack([x, y], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# patch gathering
+# ---------------------------------------------------------------------------
+
+def extract_patches(fmap, imap, images, disps, coords, P: int = 3):
+    """Gather per-patch tensors (ref net.py:190-203).
+
+    fmap [n, h, w, 128], imap [n, h, w, 384], images [n, H, W, 3],
+    disps [n, h, w], coords [n, M, 2] at 1/4 res. Returns gmap
+    [n, M, P, P, 128], imap_vec [n, M, 384], patches [n, M, 3, P, P]
+    (x, y, inverse depth), clr [n, M, 3]."""
+    n, h, w, _ = fmap.shape
+    gmap = gather_patches(fmap, coords, 1)
+    imap_vec = gather_patches(imap, coords, 0)[:, :, 0, 0, :]
+    yy, xx = torch.meshgrid(
+        torch.arange(h, dtype=fmap.dtype, device=fmap.device),
+        torch.arange(w, dtype=fmap.dtype, device=fmap.device), indexing="ij")
+    grid = torch.stack([xx.expand(n, h, w), yy.expand(n, h, w), disps], -1)
+    patches = gather_patches(grid, coords, P // 2).permute(0, 1, 4, 2, 3)
+    clr = gather_patches(images, 4.0 * (coords + 0.5), 0)[:, :, 0, 0, :]
+    return gmap, imap_vec, patches, clr
+
+
+def filter_features(confidences, target, data_shape):
+    """Zero confidence for targets outside the image (ref
+    utils.py:557-570). confidences/target [..., 2]."""
+    ht, wd = data_shape
+    ok = ((target[..., 0] >= 0) & (target[..., 0] <= wd)
+          & (target[..., 1] >= 0) & (target[..., 1] <= ht))
+    return torch.where(ok[..., None], confidences,
+                       torch.zeros_like(confidences))

@@ -1,0 +1,601 @@
+"""The VO runtime (port of the lattice path of rampvo_tpu/vo/runtime.py;
+reference ramp/Ramp_vo.py).
+
+One call per frame: encode -> patch select/extract -> commit -> motion-probe
+gate -> edge append -> (init burst | update + keyframe). The state's
+tensors are updated in place. Three per-frame decisions are read back on
+the host, as the reference does: the probe gate (pre-init only), the init
+burst and the keyframe eviction. Everything else stays on the device.
+
+Per update the correlation runs through `ops.corr_kernels.corr_lattice`
+(the Hopper kernel on CUDA tensors) and the encoder chain through
+`ops.encoder_kernels.lstm_fold_cm`; the motion probe's M-edge correlation
+is the plain exact `ops.corr.corr`, as in the reference (XLA there).
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ba.core import ba_infer
+from ..geometry.projective import flow_mag_edges, transform_edges
+from ..lie import ops as lops
+from ..models.encoders import multiscale_init_state
+from ..models.vonet import (
+    VONet,
+    extract_patches,
+    filter_features,
+    select_coords_event_bias,
+)
+from ..ops.corr import avg_pool2d, corr, corr_stack
+from ..ops.corr_kernels import corr_lattice
+from ..ops.encoder_kernels import multiscale_encode
+from .config import VOConfig
+from .state import VOState, edge_table, host_of_row, init_state
+
+DIM = 384
+INIT_FRAMES = 8      # keyframes before the init burst (Ramp_vo.py:389)
+INIT_UPDATES = 12    # updates of the init burst
+
+
+def _fdt(cfg: VOConfig):
+    return torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
+
+
+def make_enc_state(cfg: VOConfig, input_mode: str, ht: int, wd: int,
+                   device="cuda"):
+    """Encoder carry (channel-major super-states), bf16 under
+    MIXED_PRECISION; the runtime keeps the carry's dtype."""
+    if input_mode != "MultiScale":
+        raise NotImplementedError("the port runs the MultiScale encoder only")
+    return multiscale_init_state(ht, wd, dtype=_fdt(cfg),
+                                 device=resolve_device(device))
+
+
+def _clip(x, lo, hi):
+    if isinstance(x, int):
+        return min(max(x, lo), hi)
+    return x.clamp(lo, hi)
+
+
+def _gather_pose(state: VOState, logical):
+    """Pose of a logical keyframe (clamped gather through l2g)."""
+    g = state.l2g[_clip(logical, 0, state.l2g.shape[0] - 1)]
+    return state.poses[g.clamp(0, state.poses.shape[0] - 1)]
+
+
+def _patch_rows(state: VOState, kk_logical, M: int):
+    """Global patch-buffer rows of logical patch ids."""
+    host = torch.div(kk_logical, M, rounding_mode="floor")
+    g = state.l2g[host.clamp(0, state.l2g.shape[0] - 1)]
+    return g * M + torch.remainder(kk_logical, M)
+
+
+def _patches_rows(state: VOState, rows, P: int = 3):
+    """Interleaved [E, 3, P, P] patches of global patch rows."""
+    F, M = state.pat_d.shape
+    PP = P * P
+    gf = torch.div(rows, M, rounding_mode="floor").clamp(0, F - 1)
+    m = torch.remainder(rows, M)
+    px = state.pat_x.reshape(F, M, PP)[gf, m].reshape(-1, P, P)
+    py = state.pat_y.reshape(F, M, PP)[gf, m].reshape(-1, P, P)
+    pd = state.pat_d[gf, m][:, None, None].expand_as(px)
+    return torch.stack([px, py, pd], dim=1)
+
+
+def _motion_model_pose(cfg: VOConfig, state: VOState):
+    """Damped-linear extrapolation (Ramp_vo.py:356-366)."""
+    if state.n <= 1:
+        return lops.se3_identity((), device=state.poses.device)
+    P1 = _gather_pose(state, state.n - 1)
+    P2 = _gather_pose(state, state.n - 2)
+    xi = cfg.MOTION_DAMPING * lops.se3_log(lops.se3_mul(P1, lops.se3_inv(P2)))
+    return lops.se3_mul(lops.se3_exp(xi), P1)
+
+
+def _commit(cfg: VOConfig, state: VOState, fmap, gmap, imap_vec,
+            patches_new, clr, intrinsics, rand_d):
+    """Write the new frame at global row g = counter (Ramp_vo.py:344-383).
+    `rand_d` [M]: the pre-initialization depths. Does not advance n."""
+    M, L, MEM, F = cfg.M, cfg.BUFFER_SIZE, cfg.MEM, cfg.MAX_FRAMES
+    g, n = state.counter, state.n
+    dev = state.poses.device
+    state.poses[g] = _motion_model_pose(cfg, state)
+
+    # depth init: random before initialization, then the median of the
+    # last 3 frames over the full [3, M, P*P] (depth replicated per pixel)
+    P = patches_new.shape[-1]
+    PP = P * P
+    if state.initialized:
+        g3 = state.l2g[(n - 3 + torch.arange(3, device=dev)).clamp(0, L - 1)]
+        d3 = state.pat_d[g3.clamp(0, F - 1)]
+        d0 = torch.quantile(d3[:, :, None].expand(3, M, PP).reshape(-1), 0.5)
+        d0 = d0.expand(M)
+    else:
+        d0 = rand_d.to(device=dev, dtype=torch.float32)
+    state.pat_x[g] = patches_new[0, :, 0].reshape(M * PP)
+    state.pat_y[g] = patches_new[0, :, 1].reshape(M * PP)
+    state.pat_d[g] = d0
+    state.pat_cx[g] = patches_new[0, :, 0, P // 2, P // 2]
+    state.pat_cy[g] = patches_new[0, :, 1, P // 2, P // 2]
+    state.colors[g] = clr[0]
+
+    # free the ring slots of frames that aged out of the feature window
+    lim = max(n - cfg.FEATURE_WINDOW, 0)
+    if lim:
+        old = state.slotmap[:lim]
+        freed = torch.zeros(MEM, dtype=torch.int32, device=dev)
+        freed.index_put_((old.clamp(min=0),), (old >= 0).int(),
+                         accumulate=True)
+        state.slot_free |= freed > 0
+        state.slotmap[:lim] = -1
+
+    # allocate the first free slot for the new frame and fill the rings
+    s = torch.argmax(state.slot_free.int())
+    state.slot_free[s] = False
+    state.slotmap[n] = s
+    fdt = state.imap_r.dtype
+    state.imap_r[s] = imap_vec[0].to(fdt)
+    state.gmap_r[s] = gmap[0].to(fdt)
+    state.fmap1_r[s] = fmap[0].to(fdt)
+    state.fmap2_r[s] = avg_pool2d(fmap, 4)[0].to(fdt)
+
+    # provisional logical registration (kept only if the frame is)
+    state.l2g[n] = g
+    state.counter = g + 1
+    state.intrinsics = intrinsics.to(torch.float32) / 4.0
+
+
+def _quat_project(Gij, px, py, d, intrinsics):
+    """Pinhole reprojection of planar pixel arrays through per-row relative
+    poses Gij [R, 7] (px/py/d broadcast to [R, K]). Returns u, v."""
+    fx, fy, cx, cy = intrinsics.unbind(-1)
+    x0 = (px - cx) / fx
+    y0 = (py - cy) / fy
+    tx_, ty_, tz_ = Gij[..., 0:1], Gij[..., 1:2], Gij[..., 2:3]
+    qx, qy, qz, qw = Gij[..., 3:4], Gij[..., 4:5], Gij[..., 5:6], Gij[..., 6:7]
+    uvx = 2.0 * (qy - qz * y0)
+    uvy = 2.0 * (qz * x0 - qx)
+    uvz = 2.0 * (qx * y0 - qy * x0)
+    X1 = x0 + qw * uvx + (qy * uvz - qz * uvy) + d * tx_
+    Y1 = y0 + qw * uvy + (qz * uvx - qx * uvz) + d * ty_
+    Z1 = 1.0 + qw * uvz + (qx * uvy - qy * uvx) + d * tz_
+    Z = torch.clamp(Z1, min=0.1)
+    return fx * (X1 / Z) + cx, fy * (Y1 / Z) + cy
+
+
+def _lattice_hosts(cfg: VOConfig, state: VOState):
+    """Host frame of every lattice row and its clamped global id."""
+    rows = torch.arange(cfg.NI, device=state.poses.device)
+    hosts = host_of_row(rows, state.n, cfg.NI)
+    gh = state.l2g[hosts.clamp(0, state.l2g.shape[0] - 1)].clamp(
+        0, state.poses.shape[0] - 1)
+    return hosts, gh
+
+
+def _reproject_lattice_planar(cfg: VOConfig, state: VOState):
+    """Planar lattice reprojection: (u, v [NI*T, M*PP], uc, vc [NI*T, M]).
+    Patch data depends only on (host row, m) and all edges of a cell share
+    the relative pose. Dead cells give garbage that consumers mask."""
+    M, NI, T, r = cfg.M, cfg.NI, cfg.T, cfg.PATCH_LIFETIME
+    L = state.l2g.shape[0]
+    F = state.poses.shape[0]
+    MPP = state.pat_x.shape[1]
+    PP = MPP // M
+    hosts, gh = _lattice_hosts(cfg, state)
+    px, py, pd = state.pat_x[gh], state.pat_y[gh], state.pat_d[gh]
+    jj_c = hosts[:, None] + (torch.arange(T, device=gh.device)[None, :]
+                             - (r - 1))
+    pi = state.poses[gh]
+    pj = state.poses[state.l2g[jj_c.clamp(0, L - 1)].clamp(0, F - 1)]
+    Gij = lops.se3_mul(pj, lops.se3_inv(pi)[:, None, :])      # [NI, T, 7]
+    dpp = pd[:, :, None].expand(NI, M, PP).reshape(NI, 1, MPP)
+    u, v = _quat_project(Gij, px[:, None, :], py[:, None, :], dpp,
+                         state.intrinsics)
+    uc, vc = _quat_project(Gij, state.pat_cx[gh][:, None, :],
+                           state.pat_cy[gh][:, None, :], pd[:, None, :],
+                           state.intrinsics)
+    NC = NI * T
+    return (u.reshape(NC, MPP), v.reshape(NC, MPP),
+            uc.reshape(NC, M), vc.reshape(NC, M))
+
+
+def _edge_corr_ctx_lattice(cfg: VOConfig, state: VOState):
+    """Correlation + context for the full lattice. Returns (target [E, 2]
+    center reprojections, corr_in [E, 882], ctx [NI*M, DIM] t-compressed).
+
+    The context of lattice row i is the imap of its host frame's patches,
+    looked up from the row's host directly (the reference reads it through
+    the sanitized t = 0 edge, which is wrong for rows whose t = 0 cell is
+    dead; see ROADMAP)."""
+    M, MEM, NI = cfg.M, cfg.MEM, cfg.NI
+    u, v, uc, vc = _reproject_lattice_planar(cfg, state)
+    target = torch.stack([uc.reshape(-1), vc.reshape(-1)], dim=-1)
+    corr_in = corr_lattice(
+        state.gmap_r, state.fmap1_r, state.fmap2_r, u, v, state.cell_valid,
+        state.n, state.slotmap, cfg.PATCH_LIFETIME, (NI, cfg.T, M))
+    hosts, _ = _lattice_hosts(cfg, state)
+    slot_k = state.slotmap[hosts.clamp(0, state.slotmap.shape[0] - 1)]
+    gidx = (slot_k.clamp(0, MEM - 1)[:, None] * M
+            + torch.arange(M, device=hosts.device)[None, :]).reshape(-1)
+    ctx = state.imap_r.reshape(MEM * M, -1)[gidx].float()
+    return target, corr_in, ctx
+
+
+def _edge_corr_ctx(cfg: VOConfig, state: VOState, ii, jj, kk):
+    """Exact correlation + context for an arbitrary edge set (the probe's
+    M edges; Ramp_vo.py:175-182)."""
+    M, MEM = cfg.M, cfg.MEM
+    P = state.gmap_r.shape[-3]
+    L = state.l2g.shape[0]
+    F = state.poses.shape[0]
+    poses_i = state.poses[state.l2g[ii.clamp(0, L - 1)].clamp(0, F - 1)]
+    poses_j = state.poses[state.l2g[jj.clamp(0, L - 1)].clamp(0, F - 1)]
+    rows = _patch_rows(state, kk, M).clamp(0, F * M - 1)
+    coords = transform_edges(poses_i, poses_j, _patches_rows(state, rows),
+                             state.intrinsics)
+    slot_k = state.slotmap[torch.div(kk, M, rounding_mode="floor").clamp(
+        0, L - 1)]
+    gidx = slot_k.clamp(0, MEM - 1) * M + torch.remainder(kk, M)
+    slot_j = state.slotmap[jj.clamp(0, L - 1)].clamp(0, MEM - 1)
+    gflat = state.gmap_r.reshape(MEM * M, P, P, 128)
+    c1 = corr(gflat, state.fmap1_r, coords, gidx, slot_j, 3)
+    c2 = corr(gflat, state.fmap2_r, coords / 4.0, gidx, slot_j, 3)
+    corr_in = corr_stack(c1, c2)
+    ctx = state.imap_r.reshape(MEM * M, -1)[gidx].float()
+    return coords[:, P // 2, P // 2, :], corr_in, ctx
+
+
+def _probe_median(cfg: VOConfig, update_fn, state: VOState):
+    """Median predicted flow for the new, uncommitted frame
+    (Ramp_vo.py:210-225)."""
+    M, n = cfg.M, state.n
+    dev = state.poses.device
+    kk = (n - 1) * M + torch.arange(M, device=dev)
+    ii = torch.full((M,), n - 1, dtype=torch.int64, device=dev)
+    jj = torch.full((M,), n, dtype=torch.int64, device=dev)
+    _t, corr_in, ctx = _edge_corr_ctx(cfg, state, ii, jj, kk)
+    net0 = torch.zeros((M, DIM), dtype=torch.float32, device=dev)
+    _, (delta, _w) = update_fn(net0, ctx, corr_in, ii, jj, kk, None, None)
+    return torch.quantile(torch.linalg.norm(delta, dim=-1), 0.5)
+
+
+def _append_edges(cfg: VOConfig, state: VOState):
+    """Factors of the newly committed frame nf = n-1 (Ramp_vo.py:194-201,
+    312-325): its row takes the backward cells t in [0, r-1], and each of
+    the r-1 previous hosts gains the forward cell to nf."""
+    M, r, NI, T = cfg.M, cfg.PATCH_LIFETIME, cfg.NI, cfg.T
+    nf = state.n - 1
+    rf = nf % NI
+    state.cell_valid[rf] = False
+    state.net[rf] = 0.0
+    state.last_weight[rf] = 0.0
+    ok_b = [(nf + t - (r - 1)) >= 0 for t in range(r)]
+    state.cell_valid[rf, :r] = torch.tensor(ok_b, device=state.net.device)
+    for k in range(r - 1):
+        host = nf - 1 - k
+        if host < 0:
+            continue
+        row, t = host % NI, nf - host + (r - 1)
+        state.cell_valid[row, t] = True
+        state.net[row, t] = 0.0
+        state.last_weight[row, t] = 0.0
+
+
+def _update(cfg: VOConfig, update_fn, state: VOState):
+    """One VO update: reproject -> corr -> update net -> BA
+    (Ramp_vo.py:276-310)."""
+    M, PW, NI = cfg.M, cfg.POSE_WINDOW, cfg.NI
+    n = state.n
+    dev = state.poses.device
+    ii, jj, kk, valid = edge_table(cfg, n, state.cell_valid)
+    target0, corr_in, ctx = _edge_corr_ctx_lattice(cfg, state)
+    lattice = (NI, cfg.T, M)
+    net, (delta, weight) = update_fn(
+        state.net.reshape(-1, DIM), ctx, corr_in, ii, jj, kk, valid, lattice)
+    target = target0 + delta
+    weight = filter_features(weight, target, state.hw4)
+    weight = torch.where(valid[:, None], weight, torch.zeros_like(weight))
+
+    # BA over the trailing window of PW logical frames starting at base
+    base = max(n - PW, 0)
+    k = n - base                                   # live window frames
+    L, F = state.l2g.shape[0], state.poses.shape[0]
+    win_log = base + torch.arange(PW, device=dev)
+    win_ok = win_log < n
+    win_g = state.l2g[win_log.clamp(0, L - 1)]
+    win_gc = torch.where(win_ok, win_g, torch.zeros_like(win_g)).clamp(0, F - 1)
+    posew = state.poses[win_gc]
+    cwin = torch.stack([state.pat_cx[win_gc], state.pat_cy[win_gc],
+                        state.pat_d[win_gc]], dim=-1).reshape(PW * M, 3)
+    t0 = max(n - cfg.OPTIMIZATION_WINDOW if state.initialized else 1, 1)
+    wrow = torch.remainder(win_log, NI)
+    held = host_of_row(wrow, n, NI) == win_log
+    win_rows = torch.where(held & win_ok, wrow, torch.full_like(wrow, -1))
+    posew2, dwin2 = ba_infer(
+        posew, cwin, state.intrinsics, target, weight, 1e-4,
+        ii - base, jj - base, kk - base * M, t0 - base, n - base,
+        N=cfg.OPTIMIZATION_WINDOW, M=PW * M, lattice=lattice,
+        win_rows=win_rows, iterations=cfg.BA_ITERS, valid=valid)
+
+    state.poses[win_g[:k]] = posew2[:k]
+    state.pat_d[win_g[:k]] = dwin2.reshape(PW, M)[:k]
+    state.net = net.reshape(state.net.shape)
+    state.last_weight = weight.reshape(state.last_weight.shape)
+
+
+def _keyframe(cfg: VOConfig, state: VOState):
+    """Evict a redundant keyframe and age out old edges
+    (Ramp_vo.py:237-274). The eviction decision is read on the host."""
+    M, L, MEM, NI, T = cfg.M, cfg.BUFFER_SIZE, cfg.MEM, cfg.NI, cfg.T
+    r = cfg.PATCH_LIFETIME
+    F = state.poses.shape[0]
+    n = state.n
+    dev = state.poses.device
+    i = n - cfg.KEYFRAME_INDEX - 1
+    j = n - cfg.KEYFRAME_INDEX + 1
+
+    def cell_mean(a, b):
+        row, t = a % NI, b - a + (r - 1)
+        if not (0 <= t < T) or n - 1 - (n - 1 - row) % NI != a:
+            return torch.zeros((), device=dev)
+        pa = _gather_pose(state, a)
+        pb = _gather_pose(state, b)
+        rows = _patch_rows(state, a * M + torch.arange(M, device=dev),
+                           M).clamp(0, F * M - 1)
+        flow = flow_mag_edges(pa.expand(M, 7), pb.expand(M, 7),
+                              _patches_rows(state, rows), state.intrinsics,
+                              beta=0.5).mean()
+        return torch.where(state.cell_valid[row, t], flow,
+                           torch.zeros_like(flow))
+
+    m = 0.5 * (cell_mean(i, j) + cell_mean(j, i))
+    evict = bool(m < cfg.KEYFRAME_THRESH)
+    k = n - cfg.KEYFRAME_INDEX
+
+    i_row = torch.arange(NI, device=dev)[:, None]
+    tt = torch.arange(T, device=dev)[None, :]
+    if evict:
+        # trajectory delta of the removed frame (Ramp_vo.py:245-249)
+        t0g = state.l2g[_clip(k - 1, 0, L - 1)]
+        t1g = state.l2g[_clip(k, 0, L - 1)]
+        dP = lops.se3_mul(state.poses[t1g.clamp(0, F - 1)],
+                          lops.se3_inv(state.poses[t0g.clamp(0, F - 1)]))
+        state.delta_parent[t1g] = t0g
+        state.delta_dP[t1g] = dP
+
+        # remove frame k's edges and shift the numbering
+        # (Ramp_vo.py:251-256): new cell (i', t') pulls old cell
+        # (i mod NI, j - i + r - 1), i = i' + (i' >= k), j = j' + (j' >= k)
+        n_new = n - 1
+        i_new = host_of_row(i_row, n_new, NI) + 0 * tt
+        j_new = i_new + tt - (r - 1)
+        i_old = i_new + (i_new >= k).long()
+        j_old = j_new + (j_new >= k).long()
+        t_old = j_old - i_old + (r - 1)
+        okc = ((t_old >= 0) & (t_old < T) & (i_old >= 0)
+               & (i_old != k) & (j_old != k))
+        src = (torch.remainder(i_old, NI) * T + t_old.clamp(0, T - 1)).reshape(-1)
+        state.cell_valid = state.cell_valid.reshape(NI * T)[src].reshape(
+            NI, T) & okc
+        state.net = state.net.reshape(NI * T, M, -1)[src].reshape(
+            state.net.shape)
+        state.last_weight = state.last_weight.reshape(NI * T, M, 2)[
+            src].reshape(state.last_weight.shape)
+
+        # map shifts (replace the reference's buffer moves :258-268)
+        freed = state.slotmap[_clip(k, 0, L - 1)]
+        state.slot_free[freed.clamp(0, MEM - 1)] |= freed >= 0
+        state.l2g[k:] = torch.roll(state.l2g, -1)[k:]
+        state.slotmap[k:] = torch.roll(state.slotmap, -1)[k:]
+    else:
+        n_new = n
+        state.cell_valid &= (host_of_row(i_row, n, NI) >= 0)
+
+    # age out edges whose host left the removal window (:273-274)
+    host_row = host_of_row(torch.arange(NI, device=dev), n_new, NI)
+    state.cell_valid &= (host_row >= n_new - cfg.REMOVAL_WINDOW)[:, None]
+    state.n = n_new
+
+
+# ---------------------------------------------------------------------------
+# frame-level composition
+# ---------------------------------------------------------------------------
+
+def _half(cfg: VOConfig, vonet: VONet) -> VONet:
+    """The network the frame step runs: a bf16 copy under MIXED_PRECISION
+    (the reference's fp16 autocast, Ramp_vo.py:23), else the network."""
+    if cfg.MIXED_PRECISION:
+        return copy.deepcopy(vonet).to(torch.bfloat16).eval()
+    return vonet.eval()
+
+
+def make_update_fn(cfg: VOConfig, net: VONet, half: bool):
+    """update_fn(net, ctx, corr, ii, jj, kk, valid, lattice) -> (net',
+    (delta, weight)) in float32; `half` runs the operator in bf16."""
+
+    def update_fn(h, ctx, corr_in, ii, jj, kk, valid, lattice):
+        dt = torch.bfloat16 if half else torch.float32
+        h2, (delta, weight) = net.update(
+            h.to(dt), ctx.to(dt), corr_in.to(dt), ii, jj, kk, valid, lattice,
+            lattice_contig=True)
+        return h2.float(), (delta.float(), weight.float())
+
+    return update_fn
+
+
+def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
+    """Build the per-frame step.
+
+    vo_frame(state, events [1, H, W, Ce], images [1, H, W, 3], mask [1]
+    (host bool, >= 1 true), intrinsics [4], rand_d [M] or None) -> state.
+    `rand_d` overrides the pre-initialization depth draw (tests feed the
+    reference's numbers); otherwise a generator seeded with `seed` draws
+    them. `vonet` must live on `device`.
+    """
+    dev = resolve_device(device)
+    net_h = _half(cfg, vonet)
+    update_fn = make_update_fn(cfg, net_h, cfg.MIXED_PRECISION)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+
+    @torch.no_grad()
+    def encode_fn(events, images, mask, enc_state):
+        dt = next(net_h.parameters()).dtype
+        fmap, imap, enc2 = multiscale_encode(
+            net_h.patchify.encoder, events.to(dt), images.to(dt), mask,
+            enc_state)
+        return fmap / 4.0, imap / 4.0, enc2
+
+    @torch.no_grad()
+    def frame_post(state, events, images, mask, intrinsics, fmap, imap,
+                   rand_d=None):
+        M = cfg.M
+        mk = np.asarray(mask).reshape(-1).astype(bool)
+        sup = int(np.argmax(mk)) if mk.any() else len(mk) - 1
+        coords = select_coords_event_bias(events[sup:sup + 1], M, nms_rad=11)
+        h4, w4 = fmap.shape[1], fmap.shape[2]
+        disps = torch.ones((1, h4, w4), dtype=torch.float32, device=dev)
+        gmap, ictx, patches_new, clr = extract_patches(
+            fmap.float(), imap.float(), images[:1], disps, coords, P=3)
+        if rand_d is None:
+            rand_d = torch.rand(M, generator=gen)
+        _commit(cfg, state, fmap, gmap, ictx, patches_new, clr, intrinsics,
+                rand_d)
+
+        # motion-probe gate (pre-init only, Ramp_vo.py:384-387)
+        if not state.initialized and state.n > 0:
+            med = _probe_median(cfg, update_fn, state)
+            if bool(med < cfg.PROBE_THRESH):
+                g = state.counter - 1
+                state.delta_parent[g] = g - 1
+                state.delta_dP[g] = lops.se3_identity((), device=dev)
+                s = state.slotmap[state.n]
+                state.slot_free[s.clamp(0, cfg.MEM - 1)] = True
+                state.slotmap[state.n] = -1
+                return state
+
+        state.n += 1
+        _append_edges(cfg, state)
+        if not state.initialized and state.n == INIT_FRAMES:
+            state.initialized = True
+            for _ in range(INIT_UPDATES):
+                _update(cfg, update_fn, state)
+        elif state.initialized:
+            _update(cfg, update_fn, state)
+            _keyframe(cfg, state)
+        return state
+
+    def vo_frame(state, events, images, mask, intrinsics, rand_d=None):
+        events = torch.as_tensor(events, device=dev).float()
+        images = torch.as_tensor(images, device=dev).float()
+        intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
+                                     device=dev)
+        fmap, imap, state.enc = encode_fn(events, images, mask, state.enc)
+        return frame_post(state, events, images, mask, intrinsics, fmap, imap,
+                          rand_d)
+
+    vo_frame.encode_fn = encode_fn
+    return vo_frame
+
+
+def make_encode_only(encode_fn):
+    """Events-only frames: advance the encoder state, no VO
+    (Ramp_vo.py:338-342). Takes a frame step's `encode_fn`."""
+
+    def encode_only(state, events, images, mask):
+        dev = state.poses.device
+        _, _, state.enc = encode_fn(
+            torch.as_tensor(events, device=dev).float(),
+            torch.as_tensor(images, device=dev).float(), mask, state.enc)
+        return state
+
+    return encode_only
+
+
+def make_final_updates(cfg: VOConfig, vonet: VONet, iters: int = 12):
+    """Terminal refinement: `iters` extra updates in float32
+    (evaluate.py:254-255)."""
+    update_fn = make_update_fn(cfg, vonet.eval(), half=False)
+
+    @torch.no_grad()
+    def final(state):
+        for _ in range(iters):
+            _update(cfg, update_fn, state)
+        return state
+
+    return final
+
+
+# ---------------------------------------------------------------------------
+# host driver
+# ---------------------------------------------------------------------------
+
+class RampVO:
+    """Host-side driver mirroring the reference's Ramp_vo API
+    (Ramp_vo.py:27-129,327-410).
+
+    vonet: a `VONet` holding the weights (e.g. `ckpt.weights` loaded into
+    it, or `models.vonet.init_weights`)."""
+
+    def __init__(self, cfg: VOConfig, vonet: VONet,
+                 input_mode: str = "MultiScale", num_event_bins: int = 5,
+                 ht: int = 480, wd: int = 640, seed: int = 0,
+                 device="cuda"):
+        if input_mode != "MultiScale" or num_event_bins != 5:
+            raise NotImplementedError("the port runs MultiScale, 5 bins")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        # a copy of its own: moving the caller's module to the device
+        # would change the caller's object
+        self.vonet = copy.deepcopy(vonet).to(self.device).eval()
+        self.ht, self.wd = ht, wd
+        self.tlist: list = []
+        self.state = init_state(
+            cfg, make_enc_state(cfg, input_mode, ht, wd, self.device), ht, wd,
+            device=self.device)
+        self._vo_frame = make_vo_frame(cfg, self.vonet, self.device, seed)
+        self._encode_only = make_encode_only(self._vo_frame.encode_fn)
+
+    def __call__(self, tstamp, events, image, mask, intrinsics, rand_d=None):
+        """events [T, H, W, C] (T == 1), image [1, H, W, 3] normalized, mask
+        [T] host bool array, intrinsics [4]. `rand_d` [M] overrides the
+        pre-initialization depth draw."""
+        mask = np.asarray(mask).reshape(-1).astype(bool)
+        if not mask.any():
+            self.state = self._encode_only(self.state, events, image, mask)
+            return
+        self.tlist.append(tstamp)
+        self.state = self._vo_frame(self.state, events, image, mask,
+                                    intrinsics, rand_d)
+
+    def final_refinement(self, iters: int = 12):
+        """`iters` terminal update iterations (evaluate.py:254-255)."""
+        if iters > 0:
+            self.state = make_final_updates(self.cfg, self.vonet,
+                                            iters)(self.state)
+
+    def terminate(self):
+        """Interpolate removed/skipped frames through the delta chain and
+        return (poses [N, 7] camera-to-world, tstamps [N])
+        (Ramp_vo.py:162-173)."""
+        st = self.state
+        n, counter = st.n, st.counter
+        l2g = st.l2g[:n].cpu().numpy()
+        poses = st.poses.cpu()
+        parent = st.delta_parent.cpu().numpy()
+        dP = st.delta_dP.cpu()
+        traj = {int(g): poses[int(g)] for g in l2g if g >= 0}
+
+        def get_pose(t):
+            if t not in traj:
+                traj[t] = lops.se3_mul(dP[t], get_pose(int(parent[t])))
+            return traj[t]
+
+        out = torch.stack([get_pose(t) for t in range(counter)])
+        return (lops.se3_inv(out).numpy(),
+                np.array(self.tlist, dtype=float))
