@@ -3,12 +3,14 @@
 The JAX package `rampvo_tpu` is the reference this package is held
 against. This package imports neither JAX nor anything of `rampvo_tpu`.
 Its tree mirrors the reference (vo/, lie/, geometry/, models/, ops/, ba/,
-ckpt/); the two Pallas kernels of the MultiScale inference path have
-hand-written CUDA counterparts under csrc/ (ops/corr_kernels.py,
-ops/encoder_kernels.py).
+ckpt/, data/, utils/, cli/); the three Pallas kernels of the inference
+paths have hand-written CUDA counterparts under csrc/
+(ops/corr_kernels.py, ops/encoder_kernels.py for MultiScale,
+ops/singlescale_kernels.py for SingleScale).
 
-Entry points (`vo.RampVO`, `vo.runtime.make_vo_frame`, `vo.state.init_state`)
-run on the card by default and on the CPU only when asked (`device="cpu"`).
+Entry points (`python -m rampvo_tpu_torch.cli.evaluate`, `vo.RampVO`,
+`vo.runtime.make_vo_frame`, `vo.state.init_state`) run on the card by
+default and on the CPU only when asked (`device="cpu"`, `--device cpu`).
 """
 
 import torch

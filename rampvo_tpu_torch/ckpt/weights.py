@@ -1,15 +1,22 @@
 """Weights in the reference's .pth layout.
 
+`load_pth` reads a reference checkpoint (a published `RAMPVO_*.pth` or a
+train.py checkpoint dict) into a state_dict for `models.vonet.VONet`, with
+the reference loader's key hygiene (ramp/Ramp_vo.py:103-118): a wrapping
+{"model_state_dict": ...} is opened, "module." prefixes are stripped,
+"update.lmbda" is dropped, and so are the MultiScale heads' layer2/conv2,
+which the reference creates but never runs. The port's modules carry the
+reference key names, so nothing else is renamed.
+
 `from_flax_params` turns the JAX package's `{'params': ...}` tree (numpy
-arrays; the layout `rampvo_tpu.ckpt.torch_import.map_state_dict` produces)
-into a state_dict for `models.vonet.VONet`: the exact inverse of that
-mapping, with this package's own copy of the rules. The port's modules
-carry the reference .pth key names, so a published checkpoint's
-state_dict needs no renaming.
+arrays; the layout `rampvo_tpu.ckpt.torch_import.map_state_dict`
+produces) into the same state_dict: the exact inverse of that mapping,
+with this package's own copy of the rules.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -24,14 +31,22 @@ _LEAF = {
              "bias_ih_l0": "bias_ih", "bias_hh_l0": "bias_hh"},
 }
 
+# modules the reference's MultiScale heads create but never run
+_UNUSED_MULTISCALE = re.compile(
+    r"patchify\.encoder\.(fmap|imap)_encoder\.(layer2\.|conv2\.)")
 
-def _head_rules(head: str):
+
+def _head_rules(head: str, multiscale: bool):
+    """The MultiScale pyramid head runs conv1, layer1, layer3, conv3; the
+    SingleScale BasicEncoder4 conv1, layer1, layer2, conv2."""
     p, t = "patchify.encoder", "patchify/encoder"
+    layers = ("layer1", "layer3") if multiscale else ("layer1", "layer2")
+    out_conv = "conv3" if multiscale else "conv2"
     rules = {
         f"{p}.{head}.conv1": (f"{t}/{head}/conv1", "conv"),
-        f"{p}.{head}.conv3": (f"{t}/{head}/conv3", "conv"),
+        f"{p}.{head}.{out_conv}": (f"{t}/{head}/{out_conv}", "conv"),
     }
-    for lyr in ("layer1", "layer3"):
+    for lyr in layers:
         for b in (0, 1):
             base, tb = f"{p}.{head}.{lyr}.{b}", f"{t}/{head}/{lyr}_{b}"
             rules[f"{base}.conv1"] = (f"{tb}/conv1", "conv")
@@ -40,23 +55,36 @@ def _head_rules(head: str):
     return rules
 
 
-def _rules() -> Dict[str, tuple]:
-    """torch module path -> (flax path, kind), MultiScale VONet."""
+def _encoder_rules(input_mode: str) -> Dict[str, tuple]:
     p, t = "patchify.encoder", "patchify/encoder"
     rules = {}
-    for i in range(3):
-        rules[f"{p}.ev_encoders.{i}.conv_1"] = (f"{t}/ev_encoders_{i}/conv_1", "conv")
-        rules[f"{p}.im_encoders.{i}.conv_1"] = (f"{t}/im_encoders_{i}/conv_1", "conv")
-        rules[f"{p}.ev_encoders.{i}.convlstm"] = (f"{t}/ev_encoders_{i}/convlstm", "lstm")
-        rules[f"{p}.im_encoders.{i}.convlstm"] = (f"{t}/im_encoders_{i}/convlstm", "lstm")
-        rules[f"{p}.super_state_ev_encoder.{i}.encoder"] = (
-            f"{t}/super_state_ev_encoder_{i}", "ssconv")
-        rules[f"{p}.super_state_im_encoders.{i}.encoder"] = (
-            f"{t}/super_state_im_encoders_{i}", "ssconv")
-    rules.update(_head_rules("fmap_encoder"))
-    rules.update(_head_rules("imap_encoder"))
+    if input_mode == "SingleScale":
+        rules[f"{p}.events_convlstm"] = (f"{t}/events_convlstm", "lstm")
+        rules[f"{p}.image_convlstm"] = (f"{t}/image_convlstm", "lstm")
+        rules[f"{p}.superstate_encoder"] = (f"{t}/superstate_encoder",
+                                            "ssconv")
+    elif input_mode == "MultiScale":
+        for i in range(3):
+            for enc in ("ev_encoders", "im_encoders"):
+                rules[f"{p}.{enc}.{i}.conv_1"] = (f"{t}/{enc}_{i}/conv_1",
+                                                  "conv")
+                rules[f"{p}.{enc}.{i}.convlstm"] = (f"{t}/{enc}_{i}/convlstm",
+                                                    "lstm")
+            rules[f"{p}.super_state_ev_encoder.{i}.encoder"] = (
+                f"{t}/super_state_ev_encoder_{i}", "ssconv")
+            rules[f"{p}.super_state_im_encoders.{i}.encoder"] = (
+                f"{t}/super_state_im_encoders_{i}", "ssconv")
+    else:
+        raise ValueError(f"Invalid input mode: {input_mode}")
+    multiscale = input_mode == "MultiScale"
+    rules.update(_head_rules("fmap_encoder", multiscale))
+    rules.update(_head_rules("imap_encoder", multiscale))
+    return rules
+
+
+def _update_rules() -> Dict[str, tuple]:
     u = "update"
-    rules.update({
+    rules = {
         f"{u}.c1.0": (f"{u}/c1_fc1", "linear"),
         f"{u}.c1.2": (f"{u}/c1_fc2", "linear"),
         f"{u}.c2.0": (f"{u}/c2_fc1", "linear"),
@@ -70,7 +98,7 @@ def _rules() -> Dict[str, tuple]:
         f"{u}.gru.2": (f"{u}/gru_ln2", "ln"),
         f"{u}.d.1": (f"{u}/d_fc", "linear"),
         f"{u}.w.1": (f"{u}/w_fc", "linear"),
-    })
+    }
     for seq_idx, name in ((1, "gru_res1"), (3, "gru_res2")):
         rules[f"{u}.gru.{seq_idx}.gate.0"] = (f"{u}/{name}/gate_fc", "linear")
         rules[f"{u}.gru.{seq_idx}.res.0"] = (f"{u}/{name}/res_fc1", "linear")
@@ -81,6 +109,18 @@ def _rules() -> Dict[str, tuple]:
     return rules
 
 
+def _rules(input_mode: str) -> Dict[str, tuple]:
+    """torch module path -> (flax path, kind) of a VONet."""
+    return {**_encoder_rules(input_mode), **_update_rules()}
+
+
+def _leaves(tgt: str, kind: str) -> Dict[str, str]:
+    """torch leaf -> flax path of one module."""
+    if kind == "ssconv":
+        return {"weight": f"{tgt}_kernel", "bias": f"{tgt}_bias"}
+    return {k: f"{tgt}/{v}" for k, v in _LEAF[kind].items()}
+
+
 def _flax_to_torch(value: np.ndarray) -> np.ndarray:
     if value.ndim == 4:                      # conv HWIO -> OIHW
         return np.transpose(value, (3, 2, 0, 1))
@@ -89,7 +129,8 @@ def _flax_to_torch(value: np.ndarray) -> np.ndarray:
     return value
 
 
-def from_flax_params(variables) -> Dict[str, torch.Tensor]:
+def from_flax_params(variables, input_mode: str = "MultiScale"
+                     ) -> Dict[str, torch.Tensor]:
     """{'params': tree} of numpy arrays -> the port's VONet state_dict."""
     tree = variables["params"] if "params" in variables else variables
 
@@ -102,12 +143,8 @@ def from_flax_params(variables) -> Dict[str, torch.Tensor]:
         return node
 
     out: Dict[str, torch.Tensor] = {}
-    for base, (tgt, kind) in _rules().items():
-        if kind == "ssconv":
-            leaves = {"weight": f"{tgt}_kernel", "bias": f"{tgt}_bias"}
-        else:
-            leaves = {k: f"{tgt}/{v}" for k, v in _LEAF[kind].items()}
-        for leaf, path in leaves.items():
+    for base, (tgt, kind) in _rules(input_mode).items():
+        for leaf, path in _leaves(tgt, kind).items():
             val = get(path)
             if val is None:
                 continue
@@ -115,3 +152,31 @@ def from_flax_params(variables) -> Dict[str, torch.Tensor]:
             out[f"{base}.{leaf}"] = torch.tensor(arr)
     return out
 
+
+def load_pth(path_or_dict, input_mode: str) -> Dict[str, torch.Tensor]:
+    """A reference .pth (file path or already loaded dict) -> the port's
+    float32 VONet state_dict for `input_mode`, through the reference
+    loader's key hygiene. Raises on a key that no rule maps."""
+    if isinstance(path_or_dict, dict):
+        ckpt = path_or_dict
+    else:
+        # tensors, containers and numbers only: no code runs on load
+        ckpt = torch.load(path_or_dict, map_location="cpu", weights_only=True)
+    if "model_state_dict" in ckpt:
+        ckpt = ckpt["model_state_dict"]
+    multiscale = input_mode == "MultiScale"
+    rules = _rules(input_mode)
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in ckpt.items():
+        key = key.replace("module.", "")
+        if key == "update.lmbda":
+            continue
+        if multiscale and _UNUSED_MULTISCALE.match(key):
+            continue
+        base, _, leaf = key.rpartition(".")
+        if base not in rules or leaf not in _leaves(*rules[base]):
+            raise KeyError(f"unmapped checkpoint key: {key}")
+        out[key] = (val.detach().cpu().float()
+                    if isinstance(val, torch.Tensor)
+                    else torch.as_tensor(np.asarray(val, np.float32)))
+    return out

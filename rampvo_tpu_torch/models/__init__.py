@@ -1,4 +1,4 @@
-"""VONet: MultiScale encoder, update operator, patch selection."""
+"""VONet: MultiScale and SingleScale encoders, update operator, patch selection."""
 
 from .vonet import VONet
 

@@ -1,16 +1,23 @@
-"""RAMP MultiScale encoder (port of the MultiScale part of
-rampvo_tpu/models/encoders.py; ref ramp/extractor.py:274-566).
+"""RAMP encoders (port of rampvo_tpu/models/encoders.py; ref
+ramp/extractor.py:60-130, 187-269, 274-566).
 
-This module is the plain reference chain: per scale, a zero-carry
-single-step pixel LSTM for events and for the image, then the super-state
-folds (events always, the image where the mask is set), then two pyramid
-CNN heads. The VO runtime runs the same chain through the fused CUDA
-kernel (ops/encoder_kernels.py); tests hold one against the other.
+This module holds the plain reference chains of both encoders:
+- MultiScale: per scale, a zero-carry single-step pixel LSTM for events
+  and for the image, then the super-state folds (events always, the image
+  where the mask is set), then two pyramid CNN heads;
+- SingleScale: carried pixel LSTMs for events and for the image, then the
+  shared super-state fold of each modality that is present (not all
+  zero), then two BasicEncoder4 heads.
+The VO runtime runs the recurrent chains through the fused CUDA kernels
+(ops/encoder_kernels.py, ops/singlescale_kernels.py); tests hold one
+against the other.
 
 Layouts: inputs and outputs channels-last (events [T, H, W, Ce] with
 T == 1, fmap [1, h, w, 128]) like the JAX package; convolutions run NCHW
-inside. The carried super-states are channel-major [h_s, Hs*Ws] per
-scale (the kernel's layout), see `multiscale_init_state`.
+inside. The MultiScale super-states are channel-major [h_s, Hs*Ws] per
+scale (the kernel's layout), see `multiscale_init_state`; the plain
+SingleScale encoder keeps the JAX package's channels-last state
+(`SingleScaleEncoder.init_state`), the kernel path a channel-major one.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 DIM = 32  # extractor.py:4
 SCALES = (1, 2, 4)
 LSTM_DIM = 16
+SS_LSTM_DIM = 15  # SingleScale hidden size (extractor.py:187-269)
 
 
 def instance_norm(x, eps: float = 1e-5):
@@ -57,6 +65,30 @@ class ResidualBlock(nn.Module):
         if self.downsample is not None:
             x = self._norm(self.downsample(x))
         return F.relu(x + y)
+
+
+class BasicEncoder4(nn.Module):
+    """1/4-resolution head: conv7 s2 -> two residual stages -> 1x1 (ref
+    extractor.py:60-130), the SingleScale encoder's. NCHW."""
+
+    def __init__(self, output_dim: int, norm_fn: str, channel_dim: int = 5):
+        super().__init__()
+        self.norm_fn = norm_fn
+        self.conv1 = nn.Conv2d(channel_dim, DIM, 7, stride=2, padding=3)
+        self.layer1 = nn.Sequential(ResidualBlock(DIM, DIM, norm_fn),
+                                    ResidualBlock(DIM, DIM, norm_fn))
+        self.layer2 = nn.Sequential(
+            ResidualBlock(DIM, 2 * DIM, norm_fn, stride=2),
+            ResidualBlock(2 * DIM, 2 * DIM, norm_fn),
+        )
+        self.conv2 = nn.Conv2d(2 * DIM, output_dim, 1)
+
+    def forward(self, x):
+        x = self.conv1(x)
+        if self.norm_fn == "instance":
+            x = instance_norm(x)
+        x = self.layer2(self.layer1(F.relu(x)))
+        return self.conv2(x)
 
 
 class MultiScaleBasicEncoder4(nn.Module):
@@ -195,3 +227,76 @@ class MultiScaleEncoder(nn.Module):
         fmap, imap = self.heads(ss_nchw)
         return (fmap.permute(0, 2, 3, 1), imap.permute(0, 2, 3, 1),
                 {"ss": new_ss})
+
+
+# ---------------------------------------------------------------------------
+# SingleScale
+# ---------------------------------------------------------------------------
+
+class PixelLSTM(nn.LSTM):
+    """nn.LSTM applied independently to every pixel, one carried step at a
+    time (ref extractor.py:211-212,239-243). The parameters keep the
+    reference keys (weight_ih_l0, ...); gate order i, f, g, o."""
+
+    def step(self, x, h, c):
+        """x [..., C], h and c [..., hid] channels-last -> (h', c')."""
+        hid = self.hidden_size
+        b = (self.bias_ih_l0 + self.bias_hh_l0).to(x.dtype)
+        gates = (x @ self.weight_ih_l0.to(x.dtype).t()
+                 + h.to(x.dtype) @ self.weight_hh_l0.to(x.dtype).t() + b)
+        i, f, g, o = gates.split(hid, dim=-1)
+        c = torch.sigmoid(f) * c.to(x.dtype) + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+
+class SingleScaleEncoder(nn.Module):
+    """MergerLSTMsceneEncoder (ref extractor.py:187-269), T == 1: carried
+    pixel LSTMs, the shared super-state fold applied to each modality that
+    is present (not all zero, extractor.py:253-258), two BasicEncoder4
+    heads at 1/4 resolution."""
+
+    def __init__(self, evs_ch: int = 5, img_ch: int = 3,
+                 lstm_dim: int = SS_LSTM_DIM, output_dim_f: int = 128,
+                 output_dim_i: int = 384):
+        super().__init__()
+        self.events_convlstm = PixelLSTM(evs_ch, lstm_dim)
+        self.image_convlstm = PixelLSTM(img_ch, lstm_dim)
+        self.superstate_encoder = nn.Conv2d(2 * lstm_dim, lstm_dim, 1)
+        self.fmap_encoder = BasicEncoder4(output_dim_f, "instance", lstm_dim)
+        self.imap_encoder = BasicEncoder4(output_dim_i, "none", lstm_dim)
+
+    @staticmethod
+    def init_state(H: int, W: int, lstm_dim: int = SS_LSTM_DIM,
+                   dtype=torch.float32, device="cpu"):
+        """Channels-last carry {"ev": (h, c), "im": (h, c), "ss"}, each
+        [H, W, lstm_dim] (the JAX package's layout)."""
+        z = lambda: torch.zeros((H, W, lstm_dim), dtype=dtype, device=device)
+        return {"ev": (z(), z()), "im": (z(), z()), "ss": z()}
+
+    def fold(self, ss, data):
+        """The shared 1x1 fold conv on concat(ss, data), channels-last."""
+        w = self.superstate_encoder.weight[:, :, 0, 0].to(ss.dtype)
+        return (torch.cat([ss, data], dim=-1) @ w.t()
+                + self.superstate_encoder.bias.to(ss.dtype))
+
+    def heads(self, x):
+        """fmap, imap (channels-last) of an NCHW super-state
+        [1, lstm_dim, H, W]."""
+        return (self.fmap_encoder(x).permute(0, 2, 3, 1),
+                self.imap_encoder(x).permute(0, 2, 3, 1))
+
+    def forward(self, events, images, state):
+        """events [1, H, W, Ce], images [1, H, W, Ci], state from
+        `init_state`. Returns fmap [1, H/4, W/4, 128], imap
+        [1, H/4, W/4, 384] (channels-last) and the new state."""
+        if events.shape[0] != 1:
+            raise ValueError("the SingleScale encoder port takes T == 1")
+        ev, im = events[0], images[0]
+        h_ev, c_ev = self.events_convlstm.step(ev, *state["ev"])
+        h_im, c_im = self.image_convlstm.step(im, *state["im"])
+        ss = state["ss"].to(h_ev.dtype)
+        # presence gates stay tensors: no host sync
+        ss = torch.where(ev.ne(0).any(), self.fold(ss, h_ev), ss)
+        ss = torch.where(im.ne(0).any(), self.fold(ss, h_im), ss)
+        fmap, imap = self.heads(ss.permute(2, 0, 1)[None])
+        return fmap, imap, {"ev": (h_ev, c_ev), "im": (h_im, c_im), "ss": ss}

@@ -15,25 +15,30 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.corr import avg_pool2d, patchify as gather_patches
-from .encoders import MultiScaleEncoder
+from .encoders import MultiScaleEncoder, SingleScaleEncoder
 from .update import Update
 
-class Patchifier(nn.Module):
-    """Encoder holder (ref net.py:128-157); MultiScale only."""
+INPUT_MODES = {"MultiScale": MultiScaleEncoder,
+               "SingleScale": SingleScaleEncoder}
 
-    def __init__(self, evs_ch: int = 5, img_ch: int = 3):
+
+class Patchifier(nn.Module):
+    """Encoder holder (ref net.py:128-157)."""
+
+    def __init__(self, input_mode: str = "MultiScale", evs_ch: int = 5,
+                 img_ch: int = 3):
         super().__init__()
-        self.encoder = MultiScaleEncoder(evs_ch, img_ch)
+        if input_mode not in INPUT_MODES:
+            raise ValueError(f"Invalid input mode: {input_mode}")
+        self.encoder = INPUT_MODES[input_mode](evs_ch, img_ch)
 
 
 class VONet(nn.Module):
     def __init__(self, input_mode: str = "MultiScale", evs_ch: int = 5,
                  img_ch: int = 3, P: int = 3):
         super().__init__()
-        if input_mode != "MultiScale":
-            raise NotImplementedError(
-                "the port runs the MultiScale encoder only")
-        self.patchify = Patchifier(evs_ch, img_ch)
+        self.input_mode = input_mode
+        self.patchify = Patchifier(input_mode, evs_ch, img_ch)
         self.update = Update(P)
 
 

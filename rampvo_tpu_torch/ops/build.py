@@ -38,22 +38,28 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines=()) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _lib_path(name: str, defines=()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def start_build(name: str):
-    """Start nvcc for csrc/<name>.cu unless its library exists. Returns
-    (process, temporary output, library path), or None when already
-    built. The library appears atomically when `finish_build` succeeds."""
-    out = _lib_path(name)
+def start_build(name: str, defines=()):
+    """Start nvcc for csrc/<name>.cu, with `-D` for each of `defines` (a
+    build variant), unless its library exists. Returns (process, temporary
+    output, library path), or None when already built. The library
+    appears atomically when `finish_build` succeeds."""
+    out = _lib_path(name, defines)
     if out.exists():
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -72,27 +78,31 @@ def finish_build(started) -> str:
     return log
 
 
-def build_all(names) -> dict:
+def build_all(items) -> dict:
     """Build several kernels in parallel (one nvcc each, started together).
-    Returns {name: compiler output}."""
-    started = {n: start_build(n) for n in names}
-    return {n: finish_build(st) for n, st in started.items()}
+    `items`: kernel names, or (name, defines) pairs for build variants.
+    Returns {item: compiler output}."""
+    started = {it: start_build(*((it,) if isinstance(it, str) else it))
+               for it in items}
+    return {it: finish_build(st) for it, st in started.items()}
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Load (building first if needed) csrc/<name>.cu's library and declare
-    `signatures` {function: argtypes}; every function returns an int (the
-    cudaError_t after its launch)."""
+def load(name: str, signatures: dict, defines=()) -> ctypes.CDLL:
+    """Load (building first if needed) csrc/<name>.cu's library, or its
+    build variant with `defines`, and declare `signatures` {function:
+    argtypes}; every function returns an int (the cudaError_t after a
+    launch)."""
+    key = (name, tuple(defines))
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            finish_build(start_build(name))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            finish_build(start_build(name, defines))
+            lib = ctypes.CDLL(str(_lib_path(name, defines)))
             for fn, argtypes in signatures.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-            _LIBS[name] = lib
+            _LIBS[key] = lib
         return lib
 
 

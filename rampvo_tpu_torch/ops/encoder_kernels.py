@@ -188,12 +188,16 @@ def multiscale_heads(enc: MultiScaleEncoder, ss_nchw):
     return fmap.permute(0, 2, 3, 1), imap.permute(0, 2, 3, 1)
 
 
-def multiscale_encode(enc: MultiScaleEncoder, events, images, mask, state):
+def multiscale_encode(enc: MultiScaleEncoder, events, images, mask, state,
+                      heads: bool = True):
     """MultiScaleEncoder forward (T == 1) with the fused chain. Returns
     (fmap [1, H/4, W/4, 128], imap [1, H/4, W/4, 384], new state); the
-    Patchifier's /4 is the caller's."""
+    Patchifier's /4 is the caller's. `heads=False` advances the state
+    only and returns (None, None, new state)."""
     if events.shape[0] != 1:
         raise ValueError("the MultiScale encoder port takes T == 1")
     ss_nchw, new_state = multiscale_chain(enc, events, images, mask, state)
+    if not heads:
+        return None, None, new_state
     fmap, imap = multiscale_heads(enc, ss_nchw)
     return fmap, imap, new_state

@@ -9,8 +9,10 @@ burst and the keyframe eviction. Everything else stays on the device.
 
 Per update the correlation runs through `ops.corr_kernels.corr_lattice`
 (the Hopper kernel on CUDA tensors) and the encoder chain through
-`ops.encoder_kernels.lstm_fold_cm`; the motion probe's M-edge correlation
-is the plain exact `ops.corr.corr`, as in the reference (XLA there).
+`ops.encoder_kernels.lstm_fold_cm` (MultiScale) or
+`ops.singlescale_kernels.lstm_carry_fold_cm` (SingleScale); the motion
+probe's M-edge correlation is the plain exact `ops.corr.corr`, as in the
+reference (XLA there).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from .. import resolve_device
 from ..ba.core import ba_infer
 from ..geometry.projective import flow_mag_edges, transform_edges
 from ..lie import ops as lops
-from ..models.encoders import multiscale_init_state
+from ..models.encoders import SS_LSTM_DIM, multiscale_init_state
 from ..models.vonet import (
     VONet,
     extract_patches,
@@ -34,6 +36,11 @@ from ..models.vonet import (
 from ..ops.corr import avg_pool2d, corr, corr_stack
 from ..ops.corr_kernels import corr_lattice
 from ..ops.encoder_kernels import multiscale_encode
+from ..ops.singlescale_kernels import (
+    singlescale_encode,
+    singlescale_init_state,
+    singlescale_weights,
+)
 from .config import VOConfig
 from .state import VOState, edge_table, host_of_row, init_state
 
@@ -48,12 +55,16 @@ def _fdt(cfg: VOConfig):
 
 def make_enc_state(cfg: VOConfig, input_mode: str, ht: int, wd: int,
                    device="cuda"):
-    """Encoder carry (channel-major super-states), bf16 under
-    MIXED_PRECISION; the runtime keeps the carry's dtype."""
-    if input_mode != "MultiScale":
-        raise NotImplementedError("the port runs the MultiScale encoder only")
-    return multiscale_init_state(ht, wd, dtype=_fdt(cfg),
-                                 device=resolve_device(device))
+    """Encoder carry (channel-major), bf16 under MIXED_PRECISION; the
+    runtime keeps the carry's dtype. MultiScale: the per-scale
+    super-states; SingleScale: the LSTM carries and the super-state."""
+    dev = resolve_device(device)
+    if input_mode == "SingleScale":
+        return singlescale_init_state(ht, wd, SS_LSTM_DIM, dtype=_fdt(cfg),
+                                      device=dev)
+    if input_mode == "MultiScale":
+        return multiscale_init_state(ht, wd, dtype=_fdt(cfg), device=dev)
+    raise ValueError(f"Invalid input mode: {input_mode}")
 
 
 def _clip(x, lo, hi):
@@ -443,12 +454,27 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
 
+    enc = net_h.patchify.encoder
+    if vonet.input_mode == "SingleScale":
+        packed = singlescale_weights(enc)        # the network is frozen
+
+        def encode(events, images, mask, enc_state, heads):
+            return singlescale_encode(enc, events, images, enc_state, heads,
+                                      packed)
+    else:
+        def encode(events, images, mask, enc_state, heads):
+            return multiscale_encode(enc, events, images, mask, enc_state,
+                                     heads)
+
     @torch.no_grad()
-    def encode_fn(events, images, mask, enc_state):
+    def encode_fn(events, images, mask, enc_state, heads=True):
+        """(fmap/4, imap/4, new carry); `heads=False` advances the carry
+        only (events-only frames) and returns (None, None, carry)."""
         dt = next(net_h.parameters()).dtype
-        fmap, imap, enc2 = multiscale_encode(
-            net_h.patchify.encoder, events.to(dt), images.to(dt), mask,
-            enc_state)
+        fmap, imap, enc2 = encode(events.to(dt), images.to(dt), mask,
+                                  enc_state, heads)
+        if not heads:
+            return None, None, enc2
         return fmap / 4.0, imap / 4.0, enc2
 
     @torch.no_grad()
@@ -505,13 +531,16 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
 
 def make_encode_only(encode_fn):
     """Events-only frames: advance the encoder state, no VO
-    (Ramp_vo.py:338-342). Takes a frame step's `encode_fn`."""
+    (Ramp_vo.py:338-342). Takes a frame step's `encode_fn`; the whole
+    recurrent step runs (for SingleScale the carried LSTMs as well as the
+    super-state), the heads, whose output nobody reads, do not."""
 
     def encode_only(state, events, images, mask):
         dev = state.poses.device
         _, _, state.enc = encode_fn(
             torch.as_tensor(events, device=dev).float(),
-            torch.as_tensor(images, device=dev).float(), mask, state.enc)
+            torch.as_tensor(images, device=dev).float(), mask, state.enc,
+            heads=False)
         return state
 
     return encode_only
@@ -539,15 +568,25 @@ class RampVO:
     """Host-side driver mirroring the reference's Ramp_vo API
     (Ramp_vo.py:27-129,327-410).
 
-    vonet: a `VONet` holding the weights (e.g. `ckpt.weights` loaded into
-    it, or `models.vonet.init_weights`)."""
+    vonet: a `VONet` holding the weights (e.g. `ckpt.weights.load_pth`
+    loaded into it, or `models.vonet.init_weights`); its `input_mode`
+    picks the encoder, and `input_mode`, when given, must agree with it.
+    `event_bias=False` (random or gradient-biased patch selection) is not
+    ported (ROADMAP): every shipped config sets event_bias."""
 
-    def __init__(self, cfg: VOConfig, vonet: VONet,
-                 input_mode: str = "MultiScale", num_event_bins: int = 5,
-                 ht: int = 480, wd: int = 640, seed: int = 0,
-                 device="cuda"):
-        if input_mode != "MultiScale" or num_event_bins != 5:
-            raise NotImplementedError("the port runs MultiScale, 5 bins")
+    def __init__(self, cfg: VOConfig, vonet: VONet, input_mode=None,
+                 num_event_bins: int = 5, ht: int = 480, wd: int = 640,
+                 event_bias: bool = True, seed: int = 0, device="cuda"):
+        input_mode = input_mode or vonet.input_mode
+        if input_mode != vonet.input_mode:
+            raise ValueError(f"input_mode {input_mode} but the network is "
+                             f"{vonet.input_mode}")
+        if num_event_bins != 5:
+            raise NotImplementedError("the port runs 5 event bins")
+        if not event_bias:
+            raise NotImplementedError(
+                "event_bias=False (random/gradient patch selection) is not "
+                "ported yet (ROADMAP section 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         # a copy of its own: moving the caller's module to the device
@@ -578,6 +617,22 @@ class RampVO:
         if iters > 0:
             self.state = make_final_updates(self.cfg, self.vonet,
                                             iters)(self.state)
+
+    def point_cloud(self):
+        """World-space patch-center point cloud and colors of every
+        committed frame for export (Ramp_vo.py:308-310,
+        evaluate.py:256-258): numpy [counter * M, 3] each."""
+        st = self.state
+        c = st.counter
+        poses = st.poses[:c]                       # world-to-camera
+        fx, fy, cx, cy = st.intrinsics.unbind(-1)
+        d = st.pat_d[:c]
+        X0 = torch.stack([(st.pat_cx[:c] - cx) / fx, (st.pat_cy[:c] - cy) / fy,
+                          torch.ones_like(d), d], dim=-1)
+        X1 = lops.se3_act4(lops.se3_inv(poses)[:, None, :], X0)
+        pts = X1[..., :3] / torch.clamp(X1[..., 3:], min=1e-8)
+        return (pts.reshape(-1, 3).cpu().numpy(),
+                st.colors[:c].reshape(-1, 3).cpu().numpy())
 
     def terminate(self):
         """Interpolate removed/skipped frames through the delta chain and

@@ -84,7 +84,8 @@ def test_lstm_fold_ref_vs_pallas(h, dtype):
 def test_encoder_chain_vs_flax():
     """multiscale_encode (composed weights + lstm_fold_cm, whose CPU path is
     the plain version) == VONet.encode over 2 carried frames, the second
-    with mask False: fmap/imap atol 1e-4, super-states atol 1e-5."""
+    with mask False: fmap/imap atol 1e-4, super-states atol 1e-5; with
+    heads=False the same super-states exactly."""
     params = jax.jit(JVONet().init)(
         jax.random.PRNGKey(1), jnp.zeros((1, 16, 16, 5)),
         jnp.zeros((1, 16, 16, 3)), jnp.asarray([True]))
@@ -103,8 +104,14 @@ def test_encoder_chain_vs_flax():
                                     jnp.asarray([m]), sj, 1,
                                     method=JVONet.encode)
         with torch.no_grad():
+            no_f, no_i, sp_only = ek.multiscale_encode(
+                net.patchify.encoder, t(ev), t(im), np.array([m]), sp,
+                heads=False)
             fp, ip, sp = ek.multiscale_encode(net.patchify.encoder, t(ev),
                                               t(im), np.array([m]), sp)
+        # the state-only call (events-only frames) advances it exactly so
+        assert no_f is None and no_i is None
+        assert all(torch.equal(a, b) for a, b in zip(sp_only["ss"], sp["ss"]))
         np.testing.assert_allclose(npy(fp) / 4, npy(fj), atol=1e-4)
         np.testing.assert_allclose(npy(ip) / 4, npy(ij), atol=1e-4)
         for a, b in zip(sj["ss"], sp["ss"]):

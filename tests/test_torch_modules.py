@@ -347,14 +347,17 @@ def test_state_dict_roundtrip(nets):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port with jax, flax and rampvo_tpu
-    blocked succeeds."""
+    """Importing every module of the port, and chip_smoke, with jax, flax
+    and rampvo_tpu blocked succeeds; so does it with the host file
+    libraries h5py, hdf5plugin, PIL, cv2 and yaml blocked (the card's
+    machine has none of some of them), which the port imports only inside
+    the functions that read files."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-        " 'rampvo_tpu'):\n"
+        " 'rampvo_tpu', 'h5py', 'hdf5plugin', 'PIL', 'cv2', 'yaml'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import rampvo_tpu_torch\n"
