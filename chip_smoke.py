@@ -6,21 +6,27 @@
 
 Phases: (1) print the card, build the kernels from csrc/ (one nvcc each,
 all started together); (2) hold each kernel (K1 corr_lattice, K2
-lstm_fold_cm, K3 lstm_carry_fold_cm) against its plain PyTorch version at
-the main paths' full-size shapes and time both; (3) check small VO runs
-on the card against the same runs on the CPU (plain versions), MultiScale
-and SingleScale, each with an events-only frame; (4) drive the two main
-paths, each with the launch counters reset just before and read just
-after: RampVO at 480x640, 96 patches, bf16, for 40 frames plus
-events-only frames, then final_refinement and terminate, and a profile of
-four more frames -- MultiScale, then SingleScale -- and a shorter
-MultiScale pass with the default keyframe threshold so the eviction remap
-runs; (5) the evaluation CLI's run -> evaluate_sequence -> score ->
-save_stamped_trajectories in both input modes on an in-memory 480x640
-scene of 24 frames and 6 events-only frames, with the motion probe off
-and launch counts that show every frame tracked (the card's machine has
-no h5py, so the scene files are not written and read; the file readers
-are covered by the CPU tests). Prints one {"kernels": [...]} line and, last,
+lstm_fold_cm, K3 lstm_carry_fold_cm, K7/K8 the training correlation's
+forward and backward) against its plain PyTorch version at the main
+paths' full-size shapes and time both; (3) check small VO runs and small
+trainings on the card against the same runs on the CPU (plain versions),
+MultiScale and SingleScale, each VO run with an events-only frame; (4)
+drive the two main paths, each with the launch counters reset just
+before and read just after: RampVO at 480x640, 96 patches, bf16, for 40
+frames plus events-only frames, then final_refinement and terminate, and
+a profile of four more frames -- MultiScale, then SingleScale -- and a
+shorter MultiScale pass with the default keyframe threshold so the
+eviction remap runs; (5) the evaluation CLI's run -> evaluate_sequence
+-> score -> save_stamped_trajectories in both input modes on an
+in-memory 480x640 scene of 24 frames and 6 events-only frames, with the
+motion probe off and launch counts that show every frame tracked (the
+card's machine has no h5py, so the scene files are not written and read;
+the file readers are covered by the CPU tests); (6) the training main
+path: 3 optimizer steps of the MultiScale recipe
+(config_net/MultiScale_TartanEvent.json) at 480x640 through the training
+CLI's loop on an in-memory 30-voxel window of the same scene, with
+launch counts, a checkpoint round trip, s/step, peak memory and a
+profiled step. Prints one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero. Needs CUDA and
 the repository around it; imports nothing of JAX or rampvo_tpu.
 """
@@ -244,6 +250,101 @@ def check_corr_lattice(torch, ck, out):
                          max_abs_err=err)
 
 
+def synthetic_corr_train(torch, dt, seed=5):
+    """The training correlation's full-size inputs: the recipe's edge
+    schedule (15 frames, 80 patches, 18 steps: E = 18000), gmap
+    [1200, 3, 3, 128], 120x160 maps and their 4x pool, 3x3 patches whose
+    centers spread over and 8 px beyond the map, and an output gradient
+    with the training forward's per-level keep masks (p = 0.2)."""
+    from rampvo_tpu_torch.ops.corr import avg_pool2d
+    from rampvo_tpu_torch.train.forward import KEEP_P, edge_schedule
+
+    s = edge_schedule(15, 80, 18)
+    E, NG, NF = s.ii.shape[0], 15 * 80, 15
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+    ru = lambda *sh: torch.rand(*sh, generator=g, device="cuda")
+    h1, w1 = H // 4, W // 4
+    gmap = rn(NG, 3, 3, 128).to(dt)
+    f1 = rn(NF, h1, w1, 128)
+    f2 = avg_pool2d(f1, 4).to(dt).contiguous()
+    f1 = f1.to(dt)
+    cen = ru(E, 1, 1, 2) * torch.tensor([w1 + 16.0, h1 + 16.0],
+                                        device="cuda") - 8.0
+    grid = torch.stack(torch.meshgrid(torch.arange(3.0, device="cuda") - 1,
+                                      torch.arange(3.0, device="cuda") - 1,
+                                      indexing="xy"), -1)
+    coords = (cen + grid + 0.2 * rn(E, 3, 3, 2)).contiguous()
+    kk = torch.as_tensor(s.kk, device="cuda").long()
+    jj = torch.as_tensor(s.jj, device="cuda").long()
+    lvl = torch.arange(882, device="cuda") % 2
+    keep = torch.where(lvl == 0, (ru(E) < KEEP_P)[:, None],
+                       (ru(E) < KEEP_P)[:, None])
+    ct = rn(E, 882) * keep
+    return gmap, f1, f2, coords, kk, jj, ct
+
+
+def check_corr_train(torch, ctk, out_f, out_b):
+    """K7 (forward) and K8 (backward) on the full-size training inputs,
+    bf16 and f32, held against the plain version (`corr_train_ref`,
+    `corr_train_bwd_ref`). Tolerances: forward max |kernel - plain| <=
+    tol * max |plain|, tol = 1e-5 (f32: summation order) or 1e-2 (bf16:
+    one output rounding); each of the three gradients within 1e-4 (f32:
+    the atomic sums' order changes from run to run) or 2e-2 (bf16) of its
+    largest entry. The bounds count each input read once and each output
+    written once; K8's operations count the (edge, level) pairs whose
+    output gradient this run keeps (the rest cost one warp vote)."""
+    for dt, name, tf, tb in ((torch.bfloat16, "bf16", 1e-2, 2e-2),
+                             (torch.float32, "f32", 1e-5, 1e-4)):
+        gmap, f1, f2, coords, kk, jj, ct = synthetic_corr_train(torch, dt)
+        a = (gmap, f1, f2, coords, kk, jj)
+        E = coords.shape[0]
+        k = ctk.corr_train_cuda(*a).float()
+        p = ctk.corr_train_ref(*a)
+        kb = ctk.corr_train_bwd_cuda(ct, *a)
+        pb = ctk.corr_train_bwd_ref(ct, *a)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        scale = p.abs().max().item()
+        if not err <= tf * scale:
+            fail(f"corr_train fwd {name}: max err {err} (scale {scale})")
+        errb = 0.0
+        for what, x, y in zip(("gmap", "fmap1", "fmap2"), kb, pb):
+            e = (x - y).abs().max().item()
+            sc = y.abs().max().item()
+            if not (sc > 0 and e <= tb * sc):
+                fail(f"corr_train bwd {name} grad {what}: max err {e} "
+                     f"(scale {sc})")
+            errb = max(errb, e / sc)
+        ms = cuda_ms(lambda: ctk.corr_train_cuda(*a), reps=20)
+        plain = cuda_ms(lambda: ctk.corr_train_ref(*a), reps=2, warm=1)
+        ms_b = cuda_ms(lambda: ctk.corr_train_bwd_cuda(ct, *a), reps=20)
+        plain_b = cuda_ms(lambda: ctk.corr_train_bwd_ref(ct, *a), reps=2,
+                          warm=1)
+        es = torch.finfo(dt).bits // 8
+        maps = (f1.numel() + f2.numel() + gmap.numel())
+        small = E * 9 * 2 * 4 + 2 * E * 4          # coords, kk, jj
+        nbytes = E * 882 * es + maps * es + small
+        flops = E * 9 * 2 * 64 * 128 * 2
+        bms, by = bound_ms(nbytes, flops, name)
+        kept = int((ct.reshape(E, 441, 2) != 0).any(1).sum())
+        nbytes_b = E * 882 * 4 + maps * es + maps * 4 + small
+        flops_b = kept * 9 * 64 * 128 * 4
+        bms_b, by_b = bound_ms(nbytes_b, flops_b, name)
+        print(f"K7 corr_train fwd {name} E={E}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), max err "
+              f"{err:.3e} (scale {scale:.3e})")
+        print(f"K8 corr_train bwd {name} E={E}, {kept}/{2 * E} (edge, level) "
+              f"pairs kept: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
+              f"bound {bms_b:.4f} ms ({by_b}), max rel err {errb:.3e}")
+        out_f[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                           max_abs_err=err)
+        out_b[name] = dict(ms=ms_b, plain_ms=plain_b, bound_ms=bms_b,
+                           bound_by=by_b,
+                           max_abs_err=max((x - y).abs().max().item()
+                                           for x, y in zip(kb, pb)))
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the VO slice
 # ---------------------------------------------------------------------------
@@ -361,7 +462,8 @@ def run_main_path(torch, counters, input_mode, frames):
     encoded = FRAMES + events_only
     want = {"K1": 12 + (FRAMES - 8) + 2,
             "K2": 3 * encoded if input_mode == "MultiScale" else 0,
-            "K3": encoded if input_mode == "SingleScale" else 0}
+            "K3": encoded if input_mode == "SingleScale" else 0,
+            "K7": 0, "K8": 0}
     if not st.initialized or st.n != FRAMES:
         fail(f"{input_mode} main path: initialized={st.initialized} n={st.n}")
     if counts != want:
@@ -492,7 +594,8 @@ def run_cli_phase(torch, counters):
             counts = {k: c.launches for k, c in counters.items()}
             want = {"K1": 12 + (n_vo - 8) + 12,
                     "K2": 3 * len(data) if mode == "MultiScale" else 0,
-                    "K3": len(data) if mode == "SingleScale" else 0}
+                    "K3": len(data) if mode == "SingleScale" else 0,
+                    "K7": 0, "K8": 0}
             if counts != want:
                 fail(f"CLI phase {mode}: launch counts {counts}, want {want}")
             if not (np.isfinite(ate) and ate != 1000.0) \
@@ -503,6 +606,238 @@ def run_cli_phase(torch, counters):
                   f"PROBE_THRESH=-1): {len(data)} voxels ({n_vo} frames), "
                   f"ate {ate:.5f}, rot {[round(r, 4) for r in rot]}, "
                   f"{sec:.2f} s, launches {counts}, trajectory files written")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+def small_train_run(torch, device, net0, batch, draws, steps=2):
+    """`steps` optimizer steps of TrainForward + Trainer on `device` from a
+    copy of `net0`, the same draws each time. Returns (losses, gradients
+    of the first step after clipping, parameter changes)."""
+    import copy
+
+    from rampvo_tpu_torch.train.forward import TrainForward
+    from rampvo_tpu_torch.train.step import Trainer
+
+    net = copy.deepcopy(net0).to(device)
+    p0 = [p.detach().clone() for p in net.parameters()]
+    fwd = TrainForward(net, n_frames=9, M=8, steps=9)
+    tr = Trainer(net, {"steps": 300, "lr": 8e-5, "clip": 0.1,
+                       "weight_decay": 1e-6, "pct_start": 0.01})
+    b = {k: (torch.as_tensor(v).to(device) if k != "mask" else v)
+         for k, v in batch.items()}
+    losses, grads = [], None
+    for k in range(steps):
+        d = {n: v.to(device) for n, v in draws[k].items()}
+        loss, _, _ = tr.step(lambda: fwd(
+            b["events"], b["images"], b["poses"], b["disps"],
+            b["intrinsics"], b["mask"], draws=d))
+        losses.append(float(loss))
+        if grads is None:
+            grads = [p.grad.detach().cpu().clone() for p in net.parameters()]
+    delta = [(p.detach() - q).cpu() for p, q in zip(net.parameters(), p0)]
+    return losses, grads, delta, tr
+
+
+def check_small_training(torch, mode, counters):
+    """The same small training on the card (K7/K8) and on the CPU (plain
+    versions): 64x96, 9 frames (MultiScale: one voxel between frames;
+    SingleScale: one voxel per frame, as its encoder needs), 8 patches, 9
+    unrolled steps, 2 optimizer steps from the same seeded weights (flow
+    head scaled by 0.1, as in the CPU parity tests) and the same draws,
+    TF32 off. Tolerances: each step's loss within 1e-3 relative; the first
+    step's clipped gradients within 1e-2 in relative L1 over all
+    parameters; the parameter changes within 5e-2 in relative L1 and each
+    within 2 (lr_0 + lr_1), the most two AdamW steps can differ by (a
+    parameter whose gradient is rounding noise, such as a bias ahead of an
+    instance norm, moves by +-lr either way). K7 and K8 launch once per
+    unrolled step."""
+    import numpy as np
+
+    from rampvo_tpu_torch.lie import ops as lops
+    from rampvo_tpu_torch.models.vonet import VONet, init_weights
+    from rampvo_tpu_torch.train.forward import TrainForward
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("small training: TF32 must be off for the cuda-vs-cpu check")
+    ht, wd, NF = 64, 96, 9
+    g = torch.Generator().manual_seed(11)
+    if mode == "MultiScale":
+        mask = np.zeros(2 * NF, bool)
+        mask[0] = True
+        mask[2::2] = True
+    else:
+        mask = np.ones(NF, bool)
+    batch = {
+        "events": torch.rand(mask.size, ht, wd, 5, generator=g),
+        "images": torch.rand(NF, ht, wd, 3, generator=g),
+        "poses": lops.se3_exp(0.05 * torch.randn(NF, 6, generator=g)),
+        "disps": 0.5 + 0.1 * torch.rand(NF, ht, wd, generator=g),
+        "intrinsics": torch.tensor([50.0, 50.0, wd / 2, ht / 2]).expand(NF, 4),
+        "mask": mask}
+    net0 = init_weights(VONet(mode), torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        net0.update.d[1].weight.mul_(0.1)
+    probe = TrainForward(net0, n_frames=NF, M=8, steps=9)
+    draws = [probe.draw(torch.Generator().manual_seed(100 + k), "cpu")
+             for k in range(2)]
+    cpu = small_train_run(torch, "cpu", net0, batch, draws)
+    for c in counters.values():
+        c.launches = 0
+    gpu = small_train_run(torch, "cuda", net0, batch, draws)
+    torch.cuda.synchronize()
+    n7, n8 = counters["K7"].launches, counters["K8"].launches
+    l1 = lambda a, b: (sum(float((x - y).abs().sum()) for x, y in zip(a, b))
+                       / max(sum(float(y.abs().sum()) for y in b), 1e-30))
+    dl = max(abs(a - b) / abs(b) for a, b in zip(gpu[0], cpu[0]))
+    dg = l1(gpu[1], cpu[1])
+    dp = l1(gpu[2], cpu[2])
+    lr_sum = cpu[3].lr(0) + cpu[3].lr(1)
+    dmax = max(float((x - y).abs().max()) for x, y in zip(gpu[2], cpu[2]))
+    ok = (all(np.isfinite(gpu[0])) and dl <= 1e-3 and dg <= 1e-2
+          and dp <= 5e-2 and dmax <= 2 * lr_sum and n7 == n8 == 18)
+    print(f"small {mode} training 64x96 NF=9 M=8, 9 unrolled steps x 2: "
+          f"cuda losses {gpu[0]}, cpu {cpu[0]} (max rel diff {dl:.2e}); "
+          f"step-1 grads rel L1 {dg:.2e}; parameter changes rel L1 "
+          f"{dp:.2e}, max diff {dmax:.2e} (2 x lr sum {2 * lr_sum:.2e}); "
+          f"K7 {n7} K8 {n8} launches")
+    if not ok:
+        fail(f"small {mode} training: cuda and cpu disagree")
+
+
+def train_window():
+    """The full-width training window in the dataset's format: 30 voxels
+    (one between frames) and 15 frames at 480x640 of the textured-plane
+    scene of `synthetic_scene`, disparities 0.5 (the plane 2 m away), its
+    camera-to-world poses and intrinsics."""
+    import numpy as np
+
+    data, poses, _ = synthetic_scene(n_frames=15, every=1)
+    mask = np.array([bool(d["mask"][0]) for d in data])
+    nf = int(mask.sum())
+    return {
+        "events": np.concatenate([d["events"] for d in data]).astype(
+            np.float32),
+        "images": np.concatenate([d["image"] for d in data if d["mask"][0]]
+                                 ).astype(np.float32),
+        "poses": poses.astype(np.float32),
+        "disps": np.full((nf, H, W), 0.5, np.float32),
+        "intrinsics": np.tile(data[0]["intrinsics"], (nf, 1)),
+        "mask": mask}
+
+
+class InMemoryWindows:
+    """A training dataset of one window (the card's machine has no h5py)."""
+
+    def __init__(self, window):
+        self.window = window
+
+    def __len__(self):
+        return 2
+
+    def __getitem__(self, idx):
+        return self.window
+
+
+def run_train_main_path(torch, counters):
+    """The training main path at full width: the training CLI's loop
+    (cli/train.py TrainLoop) with config_net/MultiScale_TartanEvent.json's
+    recipe (480x640, 15 frames, 30 voxels, 80 patches, 18 unrolled steps,
+    E = 18000, AdamW lr 8e-5, clip 0.1) and --structure_only_steps 1 on
+    the in-memory window, 3 optimizer steps with the launch counters set
+    to 0 just before and read just after: K7 and K8 launch once per
+    unrolled step (54 each), the inference kernels never. Then: finite
+    losses, parameters changed, a checkpoint written and restored by a new
+    loop, s/step (mean of steps 2 and 3, and the median of three more warm
+    steps), peak device memory, and the device-busy share of one more,
+    profiled, step against its own wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rampvo_tpu_torch.ckpt.train_state import restore_checkpoint
+    from rampvo_tpu_torch.cli import train as ct
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(root, "config_net", "MultiScale_TartanEvent.json")
+    with open(cfg_path) as f:
+        config = json.load(f)
+    data = InMemoryWindows(train_window())
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)                  # checkpoints/<name>/ lands here
+        try:
+            argv = ["--config_path", cfg_path, "--structure_only_steps", "1",
+                    "--name", "chip_smoke", "--print_every", "1"]
+            loop = ct.TrainLoop(ct.parse_args(argv), config, data)
+            before = [p.detach().clone() for p in loop.net.parameters()]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            loop.run(n_steps=3)
+            torch.cuda.synchronize()
+            counts = {k: c.launches for k, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            want = {"K1": 0, "K2": 0, "K3": 0, "K7": 54, "K8": 54}
+            if counts != want:
+                fail(f"training launch counts {counts}, want {want}")
+            hist = list(loop.history)
+            losses = [h["loss"] for h in hist]
+            if len(hist) != 3 or not all(
+                    all(map(lambda v: v == v and abs(v) < 1e30, h.values()))
+                    for h in hist):
+                fail(f"training: non-finite metrics {hist}")
+            changed = sum(not torch.equal(a, p.detach())
+                          for a, p in zip(before, loop.net.parameters()))
+            if changed < len(before) // 2:
+                fail(f"training: only {changed}/{len(before)} parameters "
+                     "changed")
+            path = loop.save()
+            again = ct.TrainLoop(ct.parse_args(
+                argv + ["--ckpt", os.path.dirname(path)]), config, data)
+            r = restore_checkpoint(path)
+            same = (r["step"] == 3 and again.step_count == 3
+                    and again.trainer.count == 3 and all(
+                        torch.equal(a, b) for a, b in
+                        zip(again.net.state_dict().values(),
+                            loop.net.state_dict().values())))
+            if not same:
+                fail("training: checkpoint round trip differs")
+            del again
+            sec = [h["seconds"] for h in hist]
+            s_step = sum(sec[1:3]) / 2
+            # warm steps 4-6 (pose BA has run once), then a profiled step 7
+            loop.run(n_steps=3)
+            warm = sorted(h["seconds"] for h in list(loop.history)[3:6])
+            s_warm = warm[1]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                loop.run(n_steps=1)
+                torch.cuda.synchronize()
+            s_prof = loop.history[-1]["seconds"]
+        finally:
+            os.chdir(cwd)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    n_kern = sum(e.count for e in dev)
+    print(f"training main path 480x640 MultiScale f32 (recipe "
+          f"config_net/MultiScale_TartanEvent.json, E=18000, 18 unrolled "
+          f"steps, structure-only step 1): 3 steps, losses {losses}, "
+          f"seconds/step {sec}, median of steps 2-3 {s_step} s/step; "
+          f"warm steps 4-6 {warm} s, median {s_warm} s/step; peak device "
+          f"memory {peak:.2f} GiB; {changed}/{len(before)} parameter tensors "
+          f"changed; checkpoint step 3 written and restored; launches "
+          f"{counts}")
+    print(f"profile (training step 7): device busy {busy} s of the profiled "
+          f"step's {s_prof} s wall ({100 * busy / s_prof:.1f}% busy; "
+          f"{100 * busy / s_warm:.1f}% of the warm median); {n_kern} kernels")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  "
+              f"{e.key[:90]}")
+    return counts, s_step, peak, busy / s_prof
 
 
 def main() -> int:
@@ -523,6 +858,7 @@ def main() -> int:
     try:
         from rampvo_tpu_torch.ops import build
         from rampvo_tpu_torch.ops import corr_kernels as ck
+        from rampvo_tpu_torch.ops import corr_train_kernels as ctk
         from rampvo_tpu_torch.ops import encoder_kernels as ek
         from rampvo_tpu_torch.ops import singlescale_kernels as sk
     except ImportError as e:
@@ -540,7 +876,8 @@ def main() -> int:
         compare_k3_variants(torch, sk, build)
         return 0
     t = time.perf_counter()
-    logs = build.build_all(["corr_lattice", "lstm_fold", "lstm_carry_fold"])
+    logs = build.build_all(["corr_lattice", "lstm_fold", "lstm_carry_fold",
+                            "corr_train"])
     print(f"built kernels in {time.perf_counter() - t:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -549,15 +886,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    k2, k1, k3 = {}, {}, {}
+    k2, k1, k3, k7, k8 = {}, {}, {}, {}, {}
     check_lstm_fold(torch, ek, k2)
     check_corr_lattice(torch, ck, k1)
     check_lstm_carry_fold(torch, sk, k3)
+    check_corr_train(torch, ctk, k7, k8)
+    counters = {"K1": ck.corr_lattice, "K2": ek.lstm_fold_cm,
+                "K3": sk.lstm_carry_fold_cm, "K7": ctk.corr_train_cuda,
+                "K8": ctk.corr_train_bwd_cuda}
     for mode in ("MultiScale", "SingleScale"):
         check_small_slice(torch, mode)
+        check_small_training(torch, mode, counters)
 
-    counters = {"K1": ck.corr_lattice, "K2": ek.lstm_fold_cm,
-                "K3": sk.lstm_carry_fold_cm}
     frames = make_frames(torch, FRAMES, H, W, 1, "cuda")
     intr = torch.tensor([320.0, 320.0, W / 2, H / 2], device="cuda")
     n_ms, ms_ms, vo = run_main_path(torch, counters, "MultiScale", frames)
@@ -567,6 +907,9 @@ def main() -> int:
     del vo
     run_eviction_pass(torch, frames)
     run_cli_phase(torch, counters)
+    del frames
+    torch.cuda.empty_cache()
+    n_tr, _, _, _ = run_train_main_path(torch, counters)
 
     kernels = [
         dict(name="corr_lattice", route="cuda",
@@ -581,6 +924,14 @@ def main() -> int:
              source="rampvo_tpu_torch/csrc/lstm_carry_fold.cu",
              replaces="rampvo_tpu/ops/encoder_pallas.py:235",
              launches=n_ss["K3"], library_ms=None, **k3["bf16"]),
+        dict(name="corr_train_fwd", route="cuda",
+             source="rampvo_tpu_torch/csrc/corr_train.cu",
+             replaces="rampvo_tpu/ops/corr_pallas.py:1766",
+             launches=n_tr["K7"], library_ms=None, **k7["f32"]),
+        dict(name="corr_train_bwd", route="cuda",
+             source="rampvo_tpu_torch/csrc/corr_train.cu",
+             replaces="rampvo_tpu/ops/corr_pallas.py:2002",
+             launches=n_tr["K8"], library_ms=None, **k8["f32"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
-"""Gauss-Newton bundle adjustment for inference over the edge lattice
-(port of the lattice path of rampvo_tpu/ba/core.py::ba_infer; reference
-fastba ba_cuda.cu:232-376,430-576).
+"""Gauss-Newton bundle adjustment (port of rampvo_tpu/ba/core.py): the
+lattice path of `ba_infer` for inference and the differentiable `ba_train`
+for training.
 
+`ba_infer` (reference fastba ba_cuda.cu:232-376,430-576):
 Gates ||r|| < 128 px, Z > 0.2, center within 64 px of the image; damping
 S_kk += 1e-4 S_kk + 1; depth retraction with reset d > 20 -> 1 and floor
 1e-4; poses t0..t1 free. Only patch centers enter the normal equations.
 All edges of a lattice cell share a pose pair, so linearization and
 assembly run per cell. A failed Cholesky zeroes the update
 (the reference skips it, Ramp_vo.py:302-306) without leaving the device.
+
+`ba_train` (reference ramp/ba.py:86-182): one differentiable GN step over
+a flat edge list; gates ||r|| < 250 px, Z > 0.2 and the bounds; damping
+S_kk += 1e-4 S_kk + ep; depth clamp [1e-3, 10]; poses from `fixedp` on
+free, or none with `structure_only`.
 """
 
 from __future__ import annotations
@@ -41,6 +47,28 @@ def _center_jacobians(X1, tij, fx, fy):
     return Jj, Jz, torch.stack([fx * (X * d), fy * (Y * d)], dim=-1)
 
 
+def linearize_center(poses, centers, intr_i, intr_j, ii, jj):
+    """Linearize the reprojection of patch centers over a flat edge list.
+    poses [Np, 7]; centers [E, 3] (x, y, inverse depth) in frame ii;
+    intr_i/intr_j [E, 4]. Returns coords [E, 2], Z [E], Ji, Jj [E, 2, 6],
+    Jz [E, 2]. Frame indices are clamped into poses (inert edges must not
+    read garbage)."""
+    Np = poses.shape[0]
+    Gi = poses[ii.long().clamp(0, Np - 1)]
+    Gj = poses[jj.long().clamp(0, Np - 1)]
+    Gij = lops.se3_mul(Gj, lops.se3_inv(Gi))
+    fx_i, fy_i, cx_i, cy_i = intr_i.unbind(-1)
+    fx_j, fy_j, cx_j, cy_j = intr_j.unbind(-1)
+    X0 = torch.stack(
+        [(centers[:, 0] - cx_i) / fx_i, (centers[:, 1] - cy_i) / fy_i,
+         torch.ones_like(centers[:, 2]), centers[:, 2]], dim=-1)
+    X1 = lops.se3_act4(Gij, X0)
+    Jj, Jz, xy = _center_jacobians(X1, Gij[:, :3], fx_j, fy_j)
+    coords = xy + torch.stack([cx_j, cy_j], dim=-1)
+    Ji = -lops.se3_adjT(Gij[:, None, :], Jj)   # -Adj^T_{Gij} Jj
+    return coords, X1[:, 2], Ji, Jj, Jz
+
+
 def linearize_center_cells(poses, centers, intrinsics, ii_c, jj_c, Mp: int):
     """Linearize lattice-ordered patch centers with one shared camera.
 
@@ -72,11 +100,15 @@ def linearize_center_cells(poses, centers, intrinsics, ii_c, jj_c, Mp: int):
     return coords, X1[:, 2], Ji, Jj, Jz
 
 
-def _solve_schur(B, E, C, v, u, lmbda, ep, lm, n_dyn: int):
+def _solve_schur(B, E, C, v, u, lmbda, ep, lm, n_dyn: int,
+                 structure_only: bool = False):
     """Damped Schur-complement solve. B [6N, 6N], E [6N, M], C [M], v [6N],
-    u [M]; slots >= n_dyn are inert. Returns dX [N, 6], dZ [M]."""
+    u [M]; slots >= n_dyn are inert. With `structure_only` (or no pose)
+    only the depths move. Returns dX [N, 6], dZ [M]."""
     N = E.shape[0] // 6
     Q = 1.0 / (C + lmbda)
+    if structure_only or N == 0:
+        return u.new_zeros((N, 6)), Q * u
     EQ = E * Q[None, :]
     S = B - EQ @ E.t()
     y = v - EQ @ u
@@ -94,6 +126,42 @@ def _solve_schur(B, E, C, v, u, lmbda, ep, lm, n_dyn: int):
     dX = torch.where(ok, dX, torch.zeros_like(dX))
     dZ = torch.where(ok, Q * (u - E.t() @ dX), torch.zeros_like(u))
     return dX.reshape(N, 6), dZ
+
+
+def _assemble(r, w, Ji, Jj, Jz, i_slot, j_slot, k_slot, N: int, M: int):
+    """Dense normal equations of a flat edge list: each edge's Jacobians
+    expanded onto the pose-slot axis by one-hots (slot N is the explicit
+    dump for fixed and out-of-window poses), the pose Hessian one matmul,
+    the per-patch sums one index_add over k_slot (out-of-range patches
+    dropped). Returns B [6N, 6N], E [6N, M], C [M], v [6N], u [M],
+    touched [M] (ref ba/core.py::_assemble)."""
+    E_ = r.shape[0]
+    Np1 = N + 1
+
+    def onehot(s):
+        s = torch.where((s >= 0) & (s < N), s, torch.full_like(s, N))
+        return F.one_hot(s.long(), Np1).to(r.dtype)
+
+    U = (torch.einsum("ea,erx->erax", onehot(i_slot), Ji)
+         + torch.einsum("ea,erx->erax", onehot(j_slot), Jj)).reshape(
+             E_, 2, Np1 * 6)
+    Uw = U * w[..., None]
+    U2 = U.reshape(E_ * 2, Np1 * 6)
+    Uw2 = Uw.reshape(E_ * 2, Np1 * 6)
+    B_full = Uw2.t() @ U2
+    v_full = Uw2.t() @ r.reshape(E_ * 2)
+    Erow = torch.einsum("erm,er->em", Uw, Jz)
+    Ck = (w * Jz * Jz).sum(-1)
+    uk = (w * Jz * r).sum(-1)
+    feats = torch.cat([Erow, Ck[:, None], uk[:, None],
+                       w.sum(-1, keepdim=True)], dim=-1)
+    k_ok = (k_slot >= 0) & (k_slot < M)
+    feats = torch.where(k_ok[:, None], feats, torch.zeros_like(feats))
+    seg = torch.where(k_ok, k_slot, torch.full_like(k_slot, M)).long()
+    agg = feats.new_zeros((M + 1, feats.shape[1])).index_add(0, seg, feats)[:M]
+    Emat = agg[:, : Np1 * 6].t()[: 6 * N]
+    C, u, touched = agg[:, -3], agg[:, -2], agg[:, -1] > 0
+    return B_full[: 6 * N, : 6 * N], Emat, C, v_full[: 6 * N], u, touched
 
 
 def _assemble_cellwise(r, w, Ji, Jj, Jz, i_slot, j_slot, N: int, M: int,
@@ -194,3 +262,41 @@ def ba_infer(poses, cwin, intrinsics, targets, weights, lmbda, ii, jj, kk,
         d = torch.where(touched, d, cwin[:, 2])
         cwin = torch.cat([cwin[:, :2], d[:, None]], dim=1)
     return poses, cwin[:, 2]
+
+
+def ba_train(poses, patches, intrinsics, targets, weights, lmbda, ii, jj, kk,
+             bounds, ep: float = 100.0, fixedp: int = 1,
+             structure_only: bool = False, valid=None):
+    """One differentiable Gauss-Newton step (ref ba/core.py::ba_train,
+    ramp/ba.py:86-182), unbatched.
+
+    poses [Nf, 7] (world-to-camera); patches [Np, 3, P, P]; intrinsics
+    [Nf, 4]; targets, weights [E, 2]; lmbda scalar; ii/jj [E] frames, kk
+    [E] patches; bounds (x0, y0, x1, y1) of the reprojected centers; poses
+    [fixedp, Nf) free. Returns (poses', patches')."""
+    Nf = poses.shape[0]
+    Npatch, P = patches.shape[0], patches.shape[-1]
+    N = Nf - fixedp
+    iil, jjl, kkl = ii.long(), jj.long(), kk.long()
+    centers = patches[kkl, :, P // 2, P // 2]
+    coords, Z, Ji, Jj, Jz = linearize_center(
+        poses, centers, intrinsics[iil.clamp(0, Nf - 1)],
+        intrinsics[jjl.clamp(0, Nf - 1)], iil, jjl)
+    r = targets - coords
+    gate = ((torch.linalg.norm(r, dim=-1) < 250.0) & (Z > 0.2)
+            & (coords[:, 0] > bounds[0]) & (coords[:, 1] > bounds[1])
+            & (coords[:, 0] < bounds[2]) & (coords[:, 1] < bounds[3]))
+    if valid is not None:
+        gate = gate & valid
+    w = torch.where(gate[:, None], weights, torch.zeros_like(weights))
+    r = torch.where(gate[:, None], r, torch.zeros_like(r))
+    Bm, Em, C, v, u, _ = _assemble(r, w, Ji, Jj, Jz, iil - fixedp,
+                                   jjl - fixedp, kkl, N, Npatch)
+    dX, dZ = _solve_schur(Bm, Em, C, v, u, lmbda, ep, 1e-4, N,
+                          structure_only)
+    if not structure_only and N > 0:
+        poses = torch.cat([poses[:fixedp],
+                           lops.se3_retr(poses[fixedp:], dX)], dim=0)
+    d = torch.clamp(patches[:, 2] + dZ[:, None, None], 1e-3, 10.0)
+    patches = torch.cat([patches[:, :2], d[:, None]], dim=1)
+    return poses, patches

@@ -1,7 +1,5 @@
 """Network building blocks (port of rampvo_tpu/models/blocks.py; ref
-ramp/blocks.py). Submodule names follow the reference state_dict keys.
-The reference's GradientClip is an identity in the forward pass and the
-port runs inference only, so it becomes nn.Identity."""
+ramp/blocks.py). Submodule names follow the reference state_dict keys."""
 
 from __future__ import annotations
 
@@ -9,6 +7,31 @@ import torch
 import torch.nn as nn
 
 from ..ops.scatter import compact_ids, segment_softmax, segment_sum
+
+
+class _GradClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.where(torch.isnan(g), torch.zeros_like(g), g)
+        return g.clamp(-0.01, 0.01)
+
+
+def grad_clip(x):
+    """Identity whose backward zeroes NaN gradients and clamps the rest to
+    +-0.01 (ref blocks.py:76-91)."""
+    return _GradClip.apply(x)
+
+
+class GradClip(nn.Module):
+    """`grad_clip` as a module (the reference's GradientClip, which has no
+    parameters)."""
+
+    def forward(self, x):
+        return grad_clip(x)
 
 
 class GatedResidual(nn.Module):
@@ -38,7 +61,10 @@ class SoftAgg(nn.Module):
         self.g = nn.Linear(dim, dim)
         self.h = nn.Linear(dim, dim)
 
-    def forward(self, x, ix, valid=None, lattice=None, axis=None):
+    def forward(self, x, ix, valid=None, lattice=None, axis=None,
+                precompacted: bool = False):
+        """`precompacted`: ix already holds dense ranks (a static edge
+        schedule's ids, compacted once)."""
         E, D = x.shape
         if lattice is not None:
             NI, T, M = lattice
@@ -54,7 +80,7 @@ class SoftAgg(nn.Module):
             y = (self.f(xl) * (ex / denom)).sum(dim=axis, keepdim=True)
             return self.h(y).expand(NI, T, M, D).reshape(E, D)
 
-        jx = compact_ids(ix)
+        jx = ix.long() if precompacted else compact_ids(ix)
         w = segment_softmax(self.g(x), jx, E, valid=valid)
         y = segment_sum(self.f(x) * w, jx, E, valid=valid)
         return self.h(y)[jx]

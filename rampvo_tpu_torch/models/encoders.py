@@ -10,7 +10,11 @@ This module holds the plain reference chains of both encoders:
   zero), then two BasicEncoder4 heads.
 The VO runtime runs the recurrent chains through the fused CUDA kernels
 (ops/encoder_kernels.py, ops/singlescale_kernels.py); tests hold one
-against the other.
+against the other. Training encodes a whole window of T voxels from a
+fresh state (`encode_window` of either encoder) with the plain chain,
+which is differentiable: the LSTMs are carried over the window, and each
+of their steps is recomputed in the backward pass (checkpointed) rather
+than stored.
 
 Layouts: inputs and outputs channels-last (events [T, H, W, Ce] with
 T == 1, fmap [1, h, w, 128]) like the JAX package; convolutions run NCHW
@@ -25,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 DIM = 32  # extractor.py:4
 SCALES = (1, 2, 4)
@@ -148,6 +153,51 @@ def lstm_step_zero(lstm: nn.LSTM, x):
     return torch.sigmoid(o) * torch.tanh(c)
 
 
+def lstm_cell(lstm: nn.LSTM, x, h, c):
+    """One carried LSTM step on channels-last pixels: x [..., C], h and c
+    [..., hid] -> (h', c') (gate order i, f, g, o)."""
+    hid = lstm.hidden_size
+    b = (lstm.bias_ih_l0 + lstm.bias_hh_l0).to(x.dtype)
+    gates = (x @ lstm.weight_ih_l0.to(x.dtype).t()
+             + h.to(x.dtype) @ lstm.weight_hh_l0.to(x.dtype).t() + b)
+    i, f, g, o = gates.split(hid, dim=-1)
+    c = torch.sigmoid(f) * c.to(x.dtype) + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def lstm_scan(lstm: nn.LSTM, x):
+    """The pixel LSTM carried over a window from a zero state (ref
+    PixelLSTM's scan): x [T, ..., C] -> h of every step [T, ..., hid].
+    Under autograd each step is checkpointed, as the reference's
+    jax.checkpoint(step): the backward recomputes its gates."""
+    h = x.new_zeros(x.shape[1:-1] + (lstm.hidden_size,))
+    c = torch.zeros_like(h)
+    cell = lambda xt, h, c: lstm_cell(lstm, xt, h, c)
+    outs = []
+    for t in range(x.shape[0]):
+        if torch.is_grad_enabled():
+            h, c = checkpoint(cell, x[t], h, c, use_reentrant=False)
+        else:
+            h, c = cell(x[t], h, c)
+        outs.append(h)
+    return torch.stack(outs)
+
+
+def window_slots(mask, n_images: int, n_out: int):
+    """Host bookkeeping of a training window: mask [T] bool -> (mask as a
+    list of bools, image slot of each voxel (cumsum(mask) - 1, clipped,
+    ref encoders.py:370), the first n_out supervised voxels padded with
+    T - 1 (jnp.nonzero(size=n_out, fill_value=T - 1)))."""
+    m = [bool(v) for v in torch.as_tensor(mask).reshape(-1).tolist()]
+    T = len(m)
+    slot, k = [], -1
+    for v in m:
+        k += int(v)
+        slot.append(min(max(k, 0), n_images - 1))
+    sup = [t for t in range(T) if m[t]][:n_out]
+    return m, slot, sup + [T - 1] * (n_out - len(sup))
+
+
 class SuperStateEncoder(nn.Module):
     """Super-state fold: the conv on concat(ss, data), NCHW (ref
     extractor.py:393-412)."""
@@ -159,6 +209,12 @@ class SuperStateEncoder(nn.Module):
 
     def forward(self, ss, data):
         return self.encoder(torch.cat([ss, data], dim=1))
+
+    def fold_cl(self, ss, data):
+        """The same fold on channels-last pixels [..., hid] (a 1x1 conv)."""
+        w = self.encoder.weight[:, :, 0, 0].to(ss.dtype)
+        return (torch.cat([ss, data], dim=-1) @ w.t()
+                + self.encoder.bias.to(ss.dtype))
 
 
 def scale_shape(H: int, W: int, s: int):
@@ -228,6 +284,42 @@ class MultiScaleEncoder(nn.Module):
         return (fmap.permute(0, 2, 3, 1), imap.permute(0, 2, 3, 1),
                 {"ss": new_ss})
 
+    def encode_window(self, events, images, mask, n_out: int):
+        """A training window from a fresh state (ref
+        MultiScaleEncoder.__call__ with T > 1, extractor.py:468-566):
+        events [T, H, W, Ce], images [Ti, H, W, Ci], mask [T] bool with the
+        supervised voxels. Per scale the event and image LSTMs are carried
+        over their sequences; the super-state folds the events of every
+        voxel and, where the mask is set, the image of slot cumsum(mask)-1.
+        The heads run on the super-states of the first n_out supervised
+        voxels. Returns fmap [n_out, H/4, W/4, 128] and imap
+        [n_out, H/4, W/4, 384], channels-last."""
+        m, slot, sup = window_slots(mask, images.shape[0], n_out)
+        ev = events.permute(0, 3, 1, 2)
+        im = images.permute(0, 3, 1, 2)
+        ss_nchw = []
+        for si in range(len(SCALES)):
+            xe = self.ev_encoders[si].conv_1(ev)
+            xi = self.im_encoders[si].conv_1(im)
+            Hs, Ws = xe.shape[-2:]
+            out_ev = lstm_scan(self.ev_encoders[si].convlstm,
+                               xe.permute(0, 2, 3, 1))
+            out_im = lstm_scan(self.im_encoders[si].convlstm,
+                               xi.permute(0, 2, 3, 1))
+            fold_ev = self.super_state_ev_encoder[si].fold_cl
+            fold_im = self.super_state_im_encoders[si].fold_cl
+            ss = torch.zeros_like(out_ev[0])
+            saved = []
+            for t in range(len(m)):
+                ss = fold_ev(ss, out_ev[t])
+                if m[t]:
+                    ss = fold_im(ss, out_im[slot[t]])
+                saved.append(ss)
+            ss_nchw.append(torch.stack([saved[t] for t in sup]).permute(
+                0, 3, 1, 2))
+        fmap, imap = self.heads(ss_nchw)
+        return fmap.permute(0, 2, 3, 1), imap.permute(0, 2, 3, 1)
+
 
 # ---------------------------------------------------------------------------
 # SingleScale
@@ -240,13 +332,7 @@ class PixelLSTM(nn.LSTM):
 
     def step(self, x, h, c):
         """x [..., C], h and c [..., hid] channels-last -> (h', c')."""
-        hid = self.hidden_size
-        b = (self.bias_ih_l0 + self.bias_hh_l0).to(x.dtype)
-        gates = (x @ self.weight_ih_l0.to(x.dtype).t()
-                 + h.to(x.dtype) @ self.weight_hh_l0.to(x.dtype).t() + b)
-        i, f, g, o = gates.split(hid, dim=-1)
-        c = torch.sigmoid(f) * c.to(x.dtype) + torch.sigmoid(i) * torch.tanh(g)
-        return torch.sigmoid(o) * torch.tanh(c), c
+        return lstm_cell(self, x, h, c)
 
 
 class SingleScaleEncoder(nn.Module):
@@ -300,3 +386,33 @@ class SingleScaleEncoder(nn.Module):
         ss = torch.where(im.ne(0).any(), self.fold(ss, h_im), ss)
         fmap, imap = self.heads(ss.permute(2, 0, 1)[None])
         return fmap, imap, {"ev": (h_ev, c_ev), "im": (h_im, c_im), "ss": ss}
+
+    def encode_window(self, events, images, mask, n_out: int):
+        """A training window from a fresh state (ref
+        SingleScaleEncoder.__call__ with T > 1): events [T, H, W, Ce],
+        images [Ti, H, W, Ci], mask [T] bool. The event and image LSTMs are
+        carried over the window and every voxel folds each modality that
+        is present. The reference zips events with images, so only Ti == T
+        (one voxel per frame) is defined; Ti != T (voxels between frames,
+        n_events_in_between > 0) raises NotImplementedError, as the
+        reference does. The heads run on the super-states of the first
+        n_out supervised voxels. Returns fmap [n_out, H/4, W/4, 128] and
+        imap [n_out, H/4, W/4, 384], channels-last."""
+        m, _, sup = window_slots(mask, images.shape[0], n_out)
+        if images.shape[0] != len(m):
+            raise NotImplementedError(
+                "SingleScale window encoding needs one image per voxel "
+                f"(got {images.shape[0]} images for {len(m)} voxels)")
+        out_ev = lstm_scan(self.events_convlstm, events)
+        out_im = lstm_scan(self.image_convlstm, images)
+        ev_on = events.ne(0).flatten(1).any(1)
+        im_on = images.ne(0).flatten(1).any(1)
+        ss = torch.zeros_like(out_ev[0])
+        saved = []
+        for t in range(len(m)):
+            ss = torch.where(ev_on[t], self.fold(ss, out_ev[t]), ss)
+            ss = torch.where(im_on[t], self.fold(ss, out_im[t]), ss)
+            saved.append(ss)
+        x = torch.stack([saved[t] for t in sup]).permute(0, 3, 1, 2)
+        return (self.fmap_encoder(x).permute(0, 2, 3, 1),
+                self.imap_encoder(x).permute(0, 2, 3, 1))

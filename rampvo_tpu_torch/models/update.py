@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.neighbors import neighbors
-from .blocks import GatedResidual, SoftAgg
+from .blocks import GatedResidual, GradClip, SoftAgg
 
 DIM = 384  # net.py:31
 
@@ -34,14 +34,14 @@ class Update(nn.Module):
             nn.Linear(2 * 49 * p * p, DIM), nn.ReLU(), nn.Linear(DIM, DIM),
             nn.LayerNorm(DIM, eps=1e-3), nn.ReLU(), nn.Linear(DIM, DIM),
         )
-        # index 2 of d (and of w) is the reference's GradientClip: an
-        # identity in the forward pass
-        self.d = nn.Sequential(nn.ReLU(), nn.Linear(DIM, 2), nn.Identity())
-        self.w = nn.Sequential(nn.ReLU(), nn.Linear(DIM, 2), nn.Identity(),
+        # index 2 of d (and of w) is the reference's GradientClip: the
+        # identity going forward, NaN-zeroed and clamped gradients back
+        self.d = nn.Sequential(nn.ReLU(), nn.Linear(DIM, 2), GradClip())
+        self.w = nn.Sequential(nn.ReLU(), nn.Linear(DIM, 2), GradClip(),
                                nn.Sigmoid())
 
     def forward(self, net, inp, corr, ii, jj, kk, valid=None, lattice=None,
-                lattice_contig: bool = False):
+                lattice_contig: bool = False, agg_ids=None):
         """net [E, DIM]; corr [E, 882] (reference layout); ii/jj/kk [E].
 
         `lattice=(NI, T, M)`: the edge set is the full lattice in row-major
@@ -49,7 +49,11 @@ class Update(nn.Module):
         `lattice_contig=True` form is ported: each row's valid cells form a
         contiguous t-range (true in the VO runtime by construction), so the
         temporal neighbours are t-axis shifts. Without a lattice the flat
-        path sorts by (kk, jj) for the neighbours."""
+        path sorts by (kk, jj) for the neighbours.
+
+        `agg_ids` (a static edge schedule, the training forward): the two
+        SoftAgg groups' dense ids (kk ranks, (ii, jj) ranks), compacted
+        once, so no torch.unique (a host sync) runs per call."""
         if lattice is not None and not lattice_contig:
             raise NotImplementedError("lattice updates need lattice_contig")
         if lattice is not None and inp.shape[0] != net.shape[0]:
@@ -84,8 +88,11 @@ class Update(nn.Module):
             net = net + self.c1(mask_ix * net[ix.clamp(0, E - 1)])
             net = net + self.c2(mask_jx * net[jx.clamp(0, E - 1)])
 
-        net = net + self.agg_kk(net, kk, valid=valid, lattice=lattice, axis=1)
-        net = net + self.agg_ij(net, ii.long() * 12345 + jj.long(),
-                                valid=valid, lattice=lattice, axis=2)
+        pre = agg_ids is not None
+        kk_ids, ij_ids = agg_ids if pre else (kk, ii.long() * 12345 + jj.long())
+        net = net + self.agg_kk(net, kk_ids, valid=valid, lattice=lattice,
+                                axis=1, precompacted=pre)
+        net = net + self.agg_ij(net, ij_ids, valid=valid, lattice=lattice,
+                                axis=2, precompacted=pre)
         net = self.gru(net)
         return net, (self.d(net), self.w(net))

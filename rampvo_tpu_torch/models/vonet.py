@@ -41,6 +41,15 @@ class VONet(nn.Module):
         self.patchify = Patchifier(input_mode, evs_ch, img_ch)
         self.update = Update(P)
 
+    def encode(self, events, images, mask, n_out: int):
+        """Encode a training window from a fresh state (ref VONet.encode
+        with the Patchifier's scaling): events [T, H, W, Ce], images
+        [Ti, H, W, 3], mask [T] -> fmap [n_out, H/4, W/4, 128] / 4 and imap
+        [n_out, H/4, W/4, 384] / 4, channels-last."""
+        fmap, imap = self.patchify.encoder.encode_window(events, images, mask,
+                                                         n_out)
+        return fmap / 4.0, imap / 4.0
+
 
 def init_weights(net: nn.Module, generator: torch.Generator):
     """Seeded random initialisation of every parameter from `generator`

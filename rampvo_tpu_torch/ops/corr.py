@@ -85,6 +85,96 @@ def corr(gmap, fmap, coords, ii, jj, radius: int = 3):
     return out.transpose(-1, -2).reshape(E, P, P, d * d)
 
 
+def _chunks(E: int) -> int:
+    """Edge chunks of the training correlation (corr_bwd_from_gv's rule)."""
+    return 8 if E % 8 == 0 else (4 if E % 4 == 0 else 1)
+
+
+def _unblend(grad_out, x, y, R: int):
+    """Backward of the bilinear 2x2 blend and the window transpose: the
+    (2R+1)^2 output gradient [E, P, P, d*d] onto the (2R+2)^2 raw taps
+    [E, P, P, D, D] (ref ops/corr.py::_unblend)."""
+    E, P, _, _ = grad_out.shape
+    d, D = 2 * R + 1, 2 * R + 2
+    g = grad_out.reshape(E, P, P, d, d).transpose(-1, -2)   # undo (x, y)
+    fx = (x - torch.floor(x))[..., None, None]
+    fy = (y - torch.floor(y))[..., None, None]
+    gv = grad_out.new_zeros((E, P, P, D, D))
+    gv[..., :d, :d] += (1 - fy) * (1 - fx) * g
+    gv[..., :d, 1:] += (1 - fy) * fx * g
+    gv[..., 1:, :d] += fy * (1 - fx) * g
+    gv[..., 1:, 1:] += fy * fx * g
+    return gv
+
+
+def corr_bwd_from_gv(gv, gmap, fmap, coords, ii, jj, radius: int):
+    """(grad_gmap, grad_fmap) of `corr` from the raw-tap gradient gv
+    [E, P, P, D, D]: the taps are gathered again chunk by chunk, so the
+    [E, P, P, D, D, C] window tensor never exists whole (ref
+    ops/corr.py::corr_bwd_from_gv). Taps outside the map get no gradient.
+    Both results are float32."""
+    E, P, _, _ = coords.shape
+    Nf, H, W, C = fmap.shape
+    R = radius
+    D = 2 * R + 2
+    dev = fmap.device
+    x0 = torch.floor(coords[..., 0]).long().clamp(-D, W + D)
+    y0 = torch.floor(coords[..., 1]).long().clamp(-D, H + D)
+    dd = torch.arange(D, device=dev) - R
+    grad_g = torch.zeros((gmap.shape[0], P, P, C), dtype=torch.float32,
+                         device=dev)
+    grad_f = torch.zeros((Nf * H * W, C), dtype=torch.float32, device=dev)
+    c = max(E // _chunks(E), 1)
+    for s in range(0, E, c):
+        sl = slice(s, s + c)
+        yy = y0[sl][..., None, None] + dd[:, None]            # [c,P,P,D,1]
+        xx = x0[sl][..., None, None] + dd[None, :]            # [c,P,P,1,D]
+        nn_ = jj[sl].long()[:, None, None, None, None]
+        f2 = _gather_2d(fmap, nn_, yy, xx).float()            # [c,P,P,D,D,C]
+        g_c = gv[sl]
+        grad_g.index_add_(0, ii[sl].long(),
+                          torch.einsum("epqyx,epqyxc->epqc", g_c, f2))
+        del f2
+        f1 = gmap[ii[sl].long()].float()
+        contrib = torch.einsum("epqyx,epqc->epqyxc", g_c, f1)
+        yb, xb = yy.expand_as(g_c), xx.expand_as(g_c)
+        inb = (yb >= 0) & (yb < H) & (xb >= 0) & (xb < W)
+        lin = (nn_ * H + yb.clamp(0, H - 1)) * W + xb.clamp(0, W - 1)
+        grad_f.index_add_(0, lin[inb], contrib[inb])
+    return grad_g, grad_f.reshape(Nf, H, W, C)
+
+
+class CorrTrain(torch.autograd.Function):
+    """`corr` with the reference's memory-bounded backward
+    (altcorr/correlation.py:32-45, ref ops/corr.py::corr_train): gradients
+    reach gmap and fmap only; the coords gradient is zero. Forward and
+    backward run in edge chunks."""
+
+    @staticmethod
+    def forward(ctx, gmap, fmap, coords, ii, jj, radius):
+        ctx.save_for_backward(gmap, fmap, coords, ii, jj)
+        ctx.radius = radius
+        E = coords.shape[0]
+        c = max(E // _chunks(E), 1)
+        return torch.cat([corr(gmap, fmap, coords[s:s + c], ii[s:s + c],
+                               jj[s:s + c], radius)
+                          for s in range(0, max(E, 1), c)])
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        gmap, fmap, coords, ii, jj = ctx.saved_tensors
+        gv = _unblend(grad_out.float(), coords[..., 0], coords[..., 1],
+                      ctx.radius)
+        gg, gf = corr_bwd_from_gv(gv, gmap, fmap, coords, ii, jj, ctx.radius)
+        return (gg.to(gmap.dtype), gf.to(fmap.dtype), torch.zeros_like(coords),
+                None, None, None)
+
+
+def corr_train(gmap, fmap, coords, ii, jj, radius: int = 3):
+    """Differentiable `corr` (same contract) for the training forward."""
+    return CorrTrain.apply(gmap, fmap, coords, ii, jj, radius)
+
+
 def avg_pool2d(x, k: int):
     """Non-overlapping average pool on NHWC (stride == kernel)."""
     if k == 1:

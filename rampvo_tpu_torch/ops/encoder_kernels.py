@@ -45,8 +45,20 @@ _SIG = {"lstm_fold_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
         + [ctypes.c_void_p]}
 
 
+def refuse_autograd(what: str, *tensors):
+    """The encoder kernels have no backward: raise, instead of returning a
+    tensor cut from the autograd graph, when grad is enabled and an input
+    requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward; an input requires grad "
+            "under autograd (run it under torch.no_grad())")
+
+
 def lstm_fold_cuda(x_cm, ss_cm, wg, bg, wf, bf):
-    """Launch the Hopper kernel (same contract as `lstm_fold_ref`)."""
+    """Launch the Hopper kernel (same contract as `lstm_fold_ref`). It has
+    no backward (the VO runtime calls it under no_grad)."""
+    refuse_autograd("lstm_fold", x_cm, ss_cm, wg, bg, wf, bf)
     Cp, HW = x_cm.shape
     h = ss_cm.shape[0]
     dt = ss_cm.dtype

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .encoder_kernels import refuse_autograd
 from ..models.encoders import SS_LSTM_DIM, SingleScaleEncoder
 
 
@@ -57,7 +58,10 @@ _SIG = {"lstm_carry_fold_launch": [ctypes.c_void_p] * 11
 def lstm_carry_fold_cuda(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
                          defines=()):
     """Launch the Hopper kernel (same contract as `lstm_carry_fold_ref`).
-    `defines` selects a build variant of the source (see its head)."""
+    `defines` selects a build variant of the source (see its head). It has
+    no backward (the VO runtime calls it under no_grad)."""
+    refuse_autograd("lstm_carry_fold", x_cm, hc_cm, ss_cm, wg, wh, bg, wf,
+                    bf, pres)
     Cp, HW = x_cm.shape
     hp = ss_cm.shape[0]
     dt = ss_cm.dtype

@@ -349,24 +349,32 @@ def test_state_dict_roundtrip(nets):
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke, with jax, flax
     and rampvo_tpu blocked succeeds; so does it with the host file
-    libraries h5py, hdf5plugin, PIL, cv2 and yaml blocked (the card's
-    machine has none of some of them), which the port imports only inside
-    the functions that read files."""
+    libraries h5py, hdf5plugin, PIL, cv2 and yaml and the training
+    loggers' tensorboard and wandb blocked (the card's machine has none of
+    some of them), which the port imports only inside the functions that
+    use them. The walk reaches the training slice's modules."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-        " 'rampvo_tpu', 'h5py', 'hdf5plugin', 'PIL', 'cv2', 'yaml'):\n"
+        " 'rampvo_tpu', 'h5py', 'hdf5plugin', 'PIL', 'cv2', 'yaml',"
+        " 'tensorboard', 'wandb'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import rampvo_tpu_torch\n"
         "for m in pkgutil.walk_packages(rampvo_tpu_torch.__path__,"
         " 'rampvo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    print(m.name)\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    lines = res.stdout.split()
+    assert res.returncode == 0 and lines[-1:] == ["ok"], res.stderr
+    for mod in ("ops.corr_train_kernels", "train.forward", "train.loss",
+                "train.step", "ckpt.train_state", "cli.train", "data.tartan",
+                "data.augmentation", "data.frame_graph", "utils.logger"):
+        assert "rampvo_tpu_torch." + mod in lines, mod
