@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --k3-variants    # only K3's build variants, timed
+    python3 chip_smoke.py --k6-splits      # only K6 at several block sizes
 
 Phases: (1) print the card, build the kernels from csrc/ (one nvcc each,
 all started together); (2) hold each kernel (K1 corr_lattice, K2
-lstm_fold_cm, K3 lstm_carry_fold_cm, K7/K8 the training correlation's
-forward and backward) against its plain PyTorch version at the main
-paths' full-size shapes and time both; (3) check small VO runs and small
-trainings on the card against the same runs on the CPU (plain versions),
-MultiScale and SingleScale, each VO run with an events-only frame; (4)
-drive the two main paths, each with the launch counters reset just
-before and read just after: RampVO at 480x640, 96 patches, bf16, for 40
-frames plus events-only frames, then final_refinement and terminate, and
-a profile of four more frames -- MultiScale, then SingleScale -- and a
-shorter MultiScale pass with the default keyframe threshold so the
+lstm_fold_cm, K3 lstm_carry_fold_cm, K4 corr_bands, K5 corr_paired, K6
+corr_lattice_cb, K7/K8 the training correlation's forward and backward)
+against its plain PyTorch version at the main paths' full-size shapes and
+time both; hold K4-K6 against K1 (K6 and K5 bit for bit, K4 with its
+folded finish within two bf16 roundings); run the probes P1 (dynlane) and
+P2 (grid_probe, three variants and a host-clock launch loop) against their
+plain versions; (3) check small VO runs and small trainings on the card
+against the same runs on the CPU (plain versions), MultiScale and
+SingleScale, each VO run with an events-only frame, and the small
+MultiScale VO run once more under each of CORR_LAYOUT fused2, fused4 and
+folded; (4) drive the main paths, each with the launch counters reset
+just before and read just after: RampVO at 480x640, 96 patches, bf16, for
+40 frames plus events-only frames, then final_refinement and terminate,
+and a profile of four more frames -- MultiScale, SingleScale, then
+MultiScale under CORR_LAYOUT fused2, fused4 and folded (each layout's
+kernel launches once per update, the other correlation kernels never) --
+and a shorter MultiScale pass with the default keyframe threshold so the
 eviction remap runs; (5) the evaluation CLI's run -> evaluate_sequence
 -> score -> save_stamped_trajectories in both input modes on an
 in-memory 480x640 scene of 24 frames and 6 events-only frames, with the
@@ -26,9 +34,9 @@ path: 3 optimizer steps of the MultiScale recipe
 (config_net/MultiScale_TartanEvent.json) at 480x640 through the training
 CLI's loop on an in-memory 30-voxel window of the same scene, with
 launch counts, a checkpoint round trip, s/step, peak memory and a
-profiled step. Prints one {"kernels": [...]} line and, last,
-{"ok": true, "device": {...}}. Any failure exits non-zero. Needs CUDA and
-the repository around it; imports nothing of JAX or rampvo_tpu.
+profiled step. Prints one {"kernels": [...]} line (ten kernels) and,
+last, {"ok": true, "device": {...}}. Any failure exits non-zero. Needs
+CUDA and the repository around it; imports nothing of JAX or rampvo_tpu.
 """
 
 from __future__ import annotations
@@ -250,6 +258,235 @@ def check_corr_lattice(torch, ck, out):
                          max_abs_err=err)
 
 
+def check_corr_layouts(torch, ck, pk, bk, outs):
+    """K4, K5 and K6 on the synthetic full-size lattice, bf16 and f32, each
+    against its plain version (tolerance as K1's: tol * max |plain|, tol =
+    1e-2 bf16 for one output rounding, 1e-5 f32 for the summation order)
+    and against K1: K6 == K1 bit for bit and K5 through paired_corr_perm ==
+    K1 bit for bit (the same per-output arithmetic, corr_window.cuh; only
+    the decomposition or the store differs), K5's 30 zero columns per
+    pixel zero; K4 with its folded finish, mapped back through
+    folded_corr_perm, within 2e-2 of K1's scale in bf16 (two roundings:
+    the bands and the output) and 1e-5 in f32 (the blend in PyTorch's
+    order). Dead cells zero in every output. Times each kernel, K4's
+    finish, and the plain versions; `outs` gets {"K4"|"K5"|"K6"|"K4
+    finish": {dtype: numbers}}."""
+    from rampvo_tpu_torch.ops.corr_perms import folded_corr_perm, \
+        paired_corr_perm
+
+    pidx = torch.tensor(paired_corr_perm(3, 3), dtype=torch.long,
+                        device="cuda")
+    finv = torch.tensor(folded_corr_perm(3, 3), dtype=torch.long,
+                        device="cuda")
+    for dt, name, tol in ((torch.bfloat16, "bf16", 1e-2),
+                          (torch.float32, "f32", 1e-5)):
+        (gmap, f1, f2, u, v, cv, n, slotmap, r,
+         lat) = synthetic_lattice(torch, dt)
+        NI, T, Mm = lat
+        MEM = gmap.shape[0]
+        cells = ck.cell_tables(NI, T, r, n, cv, slotmap, MEM)
+        a = (gmap, f1, f2, u, v, cells, Mm)
+        k1 = ck.corr_lattice_cuda(*a)
+        tables = ck.cell_tables_a(NI, T, r, n, cv, slotmap, MEM)
+        a6 = (gmap, f1, f2, u, v, tables, Mm)
+        k6 = ck.corr_lattice_cb_cuda(*a6)
+        p6 = ck.corr_lattice_cb_ref(*a6)
+        k5 = pk.corr_lattice_paired_cuda(*a)
+        p5 = pk.corr_lattice_paired_ref(*a)
+        k4 = bk.corr_bands_cuda(*a)
+        p4 = bk.corr_bands_ref(*a)
+        E = NI * T * Mm
+        vmask = ck.cell_vmask(NI, T, r, n, cv)[:, :, None].expand(
+            NI, T, Mm).reshape(-1)
+        fol = bk.stack_levels(*bk.finish_bands(k4, u, v, vmask),
+                              folded=True).to(dt)
+        torch.cuda.synchronize()
+        live = (cells[:, 0] >= 0).repeat_interleave(Mm)
+        scale = k1.float().abs().max().item()
+        if not torch.equal(k6, k1):
+            fail(f"K6 corr_lattice_cb {name}: differs from K1")
+        if not torch.equal(k5[:, pidx >= 0], k1[:, pidx[pidx >= 0]]) \
+                or bool((k5[:, pidx < 0] != 0).any()):
+            fail(f"K5 corr_paired {name}: differs from K1 through the perm "
+                 "or a zero column is not zero")
+        back = torch.empty_like(fol)
+        back[:, finv] = fol
+        e41 = (back.float() - k1.float()).abs().max().item()
+        if not e41 <= (2e-2 if name == "bf16" else 1e-5) * scale:
+            fail(f"K4 + folded finish {name}: max err {e41} against K1 "
+                 f"(scale {scale})")
+        errs = {}
+        for key, k, p in (("K6", k6, p6), ("K5", k5, p5), ("K4", k4, p4)):
+            e = (k.float() - p.float()).abs().max().item()
+            sc = p.float().abs().max().item()
+            if not e <= tol * sc:
+                fail(f"{key} {name}: max err {e} against its plain version "
+                     f"(scale {sc})")
+            if bool((k.reshape(E, -1)[~live] != 0).any()):
+                fail(f"{key} {name}: a dead cell is not zero")
+            errs[key] = e
+        es = torch.finfo(dt).bits // 8
+        n_live = int((cells[:, 0] >= 0).sum())
+        t_slots = torch.unique(cells[cells[:, 0] >= 0, 0]).numel()
+        g_slots = torch.unique(cells[cells[:, 0] >= 0, 1]).numel()
+        ins = (2 * E * 9 * 4 + g_slots * Mm * 9 * 128 * es
+               + t_slots * (f1[0].numel() + f2[0].numel()) * es)
+        flops = n_live * Mm * 9 * 2 * 64 * 128 * 2
+        tabs_b = {"K6": sum(x.numel() for x in tables) * 4,
+                  "K5": cells.numel() * 4, "K4": cells.numel() * 4}
+        ncol = {"K6": 882, "K5": 1152, "K4": 1152}
+        runs = {"K6": (lambda: ck.corr_lattice_cb_cuda(*a6),
+                       lambda: ck.corr_lattice_cb_ref(*a6)),
+                "K5": (lambda: pk.corr_lattice_paired_cuda(*a),
+                       lambda: pk.corr_lattice_paired_ref(*a)),
+                "K4": (lambda: bk.corr_bands_cuda(*a),
+                       lambda: bk.corr_bands_ref(*a))}
+        k1_ms = cuda_ms(lambda: ck.corr_lattice_cuda(*a), reps=20)
+        for key, (kern, plain_fn) in runs.items():
+            ms = cuda_ms(kern, reps=20)
+            plain = cuda_ms(plain_fn, reps=2, warm=1)
+            bms, by = bound_ms(E * ncol[key] * es + ins + tabs_b[key], flops,
+                               name)
+            print(f"{key} {name}: kernel {ms:.4f} ms (K1 {k1_ms:.4f} ms), "
+                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), max err "
+                  f"{errs[key]:.3e}" + (f"; K4 + folded finish vs K1 max err "
+                                        f"{e41:.3e} (scale {scale:.3e})"
+                                        if key == "K4" else ""))
+            outs.setdefault(key, {})[name] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                max_abs_err=errs[key])
+        fin = cuda_ms(lambda: bk.stack_levels(
+            *bk.finish_bands(k4, u, v, vmask), folded=True).to(dt), reps=10)
+        fb, fby = bound_ms(E * 1152 * es + 2 * E * 9 * 4 + E + E * 882 * es,
+                           E * 9 * 2 * 49 * 7, name)
+        print(f"K4 folded finish (plain PyTorch) {name}: {fin:.4f} ms, bound "
+              f"{fb:.4f} ms ({fby}); K4 + finish {fin + outs['K4'][name]['ms']:.4f}"
+              f" ms against K1 {k1_ms:.4f} ms")
+        outs.setdefault("K4 finish", {})[name] = dict(ms=fin, bound_ms=fb)
+
+
+def probe_device_us(torch, launch, variants, n=100):
+    """Mean device time of one launch of each variant (torch.profiler's
+    kernel durations over `n` launches), in microseconds: what the card
+    spends, where the event-timed loop may measure the host's issue rate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for var in variants:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                launch(var)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "grid_" in e.key]
+        out[var] = (sum(e.self_device_time_total for e in dev)
+                    / max(sum(e.count for e in dev), 1))
+    return out
+
+
+def check_probes(torch, p1, p2, counters, outs):
+    """P1 and P2 on the card against their plain versions, exactly (the
+    same float32 adds; zero rows at the same places). The probes' run --
+    P1 once, P2's three variants once each and 1000 back-to-back launches
+    of variant A -- is counted with the counters set to 0 before it; then
+    each is timed per launch with CUDA events, and variant A's 1000
+    launches on the host clock (the host's issue cost per launch, since
+    the empty blocks finish faster than the host issues them)."""
+    for c in counters.values():
+        c.launches = 0
+    tabs, vcol, x = p1.inputs(seed=1, device="cuda")
+    o_k = torch.zeros((1, p1.T * p1.SP, p1.W), device="cuda")
+    o_p = torch.zeros_like(o_k)
+    p1.dynlane_cuda(tabs, vcol, x, o_k)
+    p1.dynlane_ref(tabs, vcol, x, o_p)
+    torch.cuda.synchronize()
+    if not torch.equal(o_k, o_p) or not bool((o_k[0, 2 * p1.SP] != 0).any()):
+        fail("P1 dynlane differs from its plain version")
+    gt, n_live = p2.make_tabs(True)
+    gt = gt.cuda()
+    outs_k, outs_p = {}, {}
+    for var in p2.VARIANTS:
+        outs_k[var] = [torch.full(s, 7.0, dtype=torch.bfloat16, device="cuda")
+                       for s in p2.output_shapes(var)]
+        outs_p[var] = [o.clone() for o in outs_k[var]]
+        p2.grid_probe_cuda(var, gt, outs_k[var])
+        p2.grid_probe_ref(var, gt, outs_p[var])
+    torch.cuda.synchronize()
+    for var in p2.VARIANTS:
+        if not all(torch.equal(a, b) for a, b in zip(outs_k[var],
+                                                     outs_p[var])):
+            fail(f"P2 grid_probe {var} differs from its plain version")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(1000):
+        p2.grid_probe_cuda("noop", gt, [])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / 1000
+    counts = {"P1": counters["P1"].launches, "P2": counters["P2"].launches}
+    if counts != {"P1": 1, "P2": 1003}:
+        fail(f"probe launch counts {counts}")
+    ms1 = cuda_ms(lambda: p1.dynlane_cuda(tabs, vcol, x, o_k), reps=20)
+    plain1 = cuda_ms(lambda: p1.dynlane_ref(tabs, vcol, x, o_p), reps=5)
+    walked = 5 * p1.SP
+    b1, by1 = bound_ms(8 + walked * 2 * 4 + x.numel() * 4 + walked * p1.W * 4,
+                       walked * p1.W, "f32")
+    print(f"P1 dynlane: kernel {ms1:.4f} ms, plain {plain1:.4f} ms, bound "
+          f"{b1:.6f} ms ({by1}), exact")
+    outs["P1"] = dict(ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
+                      max_abs_err=0.0, launches=counts["P1"])
+    rows = len({(int(a), int(b)) for a, b in zip(gt[:, 4], gt[:, 1])})
+    p2ms = {}
+    for var in p2.VARIANTS:
+        o = outs_k[var]
+        p2ms[var] = cuda_ms(lambda: p2.grid_probe_cuda(var, gt, o), reps=50,
+                            warm=5)
+    dev_us = probe_device_us(torch, lambda var: p2.grid_probe_cuda(
+        var, gt, outs_k[var]), p2.VARIANTS)
+    plain2 = cuda_ms(lambda: p2.grid_probe_ref("two", gt, outs_p["two"]),
+                     reps=5)
+    b2, by2 = bound_ms(gt.numel() * 4 + 2 * rows * p2.ROW * 2, 0, "bf16")
+    NB = p2.NB
+    print(f"P2 grid_probe NB={NB} blocks ({n_live} live cells, {rows} distinct "
+          f"rows): per launch A no-op {p2ms['noop']:.5f} ms, B two outputs "
+          f"{p2ms['two']:.5f} ms, C one output {p2ms['one']:.5f} ms; per block "
+          f"A {1e3 * p2ms['noop'] / NB:.4f} us, B {1e3 * p2ms['two'] / NB:.4f}"
+          f" us; host issue (1000 launches of A, host clock) "
+          f"{host_ms:.5f} ms per launch; device time per launch (profiler) "
+          f"A {dev_us['noop']:.3f} us, B {dev_us['two']:.3f} us, C "
+          f"{dev_us['one']:.3f} us; plain (B) {plain2:.4f} ms; bound (B) "
+          f"{b2:.6f} ms ({by2}); exact")
+    outs["P2"] = dict(ms=p2ms["two"], plain_ms=plain2, bound_ms=b2,
+                      bound_by=by2, max_abs_err=0.0, launches=counts["P2"],
+                      noop_ms=p2ms["noop"], one_output_ms=p2ms["one"],
+                      host_issue_ms=host_ms,
+                      device_us={k: round(v, 4) for k, v in dev_us.items()})
+
+
+def compare_k6_splits(torch, ck, splits=(1, 2, 4, 8, 16, 32)):
+    """`--k6-splits`: K6 on the synthetic full-size lattice (bf16, f32) with
+    each number of patches per block, against K1 in the same process:
+    each must equal K1 bit for bit; prints each one's time."""
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        (gmap, f1, f2, u, v, cv, n, slotmap, r,
+         lat) = synthetic_lattice(torch, dt)
+        NI, T, Mm = lat
+        cells = ck.cell_tables(NI, T, r, n, cv, slotmap, gmap.shape[0])
+        tables = ck.cell_tables_a(NI, T, r, n, cv, slotmap, gmap.shape[0])
+        a = (gmap, f1, f2, u, v, cells, Mm)
+        a6 = (gmap, f1, f2, u, v, tables, Mm)
+        k1 = ck.corr_lattice_cuda(*a)
+        times = [f"K1 {cuda_ms(lambda: ck.corr_lattice_cuda(*a), reps=20):.4f}"]
+        for eb in splits:
+            if not torch.equal(ck.corr_lattice_cb_cuda(*a6, eb=eb), k1):
+                fail(f"K6 with {eb} patches per block differs from K1")
+            ms = cuda_ms(lambda: ck.corr_lattice_cb_cuda(*a6, eb=eb), reps=20)
+            times.append(f"eb={eb} ({tables[0].shape[0] * -(-Mm // eb)} "
+                         f"group blocks) {ms:.4f}")
+        print(f"K6 patches per block, {name}, ms: " + ", ".join(times))
+
+
 def synthetic_corr_train(torch, dt, seed=5):
     """The training correlation's full-size inputs: the recipe's edge
     schedule (15 frames, 80 patches, 18 steps: E = 18000), gmap
@@ -356,9 +593,10 @@ def make_frames(torch, n, ht, wd, seed, device):
             for _ in range(n)]
 
 
-def check_small_slice(torch, input_mode):
+def check_small_slice(torch, input_mode, layout="fused3"):
     """The same small f32 VO run on the card (kernels) and on the CPU (plain
-    versions), 12 frames and an events-only frame after frame 5:
+    versions) under CORR_LAYOUT `layout`, 12 frames and an events-only
+    frame after frame 5:
     identical keyframe bookkeeping at every frame, poses within 1e-2. The
     card runs float32 convolutions and products without TF32
     (torch.backends.cudnn.allow_tf32 and cuda.matmul.allow_tf32 are set
@@ -374,7 +612,7 @@ def check_small_slice(torch, input_mode):
     cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=5,
                    OPTIMIZATION_WINDOW=4, PATCH_LIFETIME=3, KEYFRAME_INDEX=2,
                    MIXED_PRECISION=False, PROBE_THRESH=-1.0, MAX_FRAMES=64,
-                   MEM=16)
+                   MEM=16, CORR_LAYOUT=layout)
     net = init_weights(VONet(input_mode), torch.Generator().manual_seed(5))
     vos = {d: RampVO(cfg, net, ht=ht, wd=wd, device=d, seed=1)
            for d in ("cpu", "cuda")}
@@ -390,10 +628,11 @@ def check_small_slice(torch, input_mode):
                 and torch.equal(a.cell_valid, b.cell_valid.cpu()))
         dp = (a.poses[:a.counter] - b.poses[:a.counter].cpu()).abs().max().item()
         if not same or not dp <= 1e-2:
-            fail(f"small {input_mode} slice cuda vs cpu, frame {f}: "
-                 f"same={same} dpose={dp}")
-    print(f"small {input_mode} slice 64x96 M=8: cuda == cpu bookkeeping over "
-          f"12 frames + 1 events-only, max pose diff {dp:.3e}")
+            fail(f"small {input_mode} {layout} slice cuda vs cpu, frame "
+                 f"{f}: same={same} dpose={dp}")
+    print(f"small {input_mode} slice 64x96 M=8 CORR_LAYOUT {layout}: cuda == "
+          f"cpu bookkeeping over 12 frames + 1 events-only, max pose diff "
+          f"{dp:.3e}")
 
 
 def profile_frames(torch, vo, frames, intr, frame_ms):
@@ -420,22 +659,28 @@ def profile_frames(torch, vo, frames, intr, frame_ms):
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/frame "
               f"{e.count / n:6.1f}x  {e.key[:90]}")
+    return busy, calls
 
 
-def run_main_path(torch, counters, input_mode, frames):
-    """RampVO at 480x640, M=96, bf16, `input_mode`: FRAMES frames and an
-    events-only frame after every tenth, then final_refinement(2) and
-    terminate, with every launch counter set to 0 just before and read
-    just after. The encoder kernel of the mode (K2: 3 launches per encoded
-    frame, K3: 1) and K1 (one per update) must have run exactly as often
-    as the path asks. Returns (counts, median steady ms/frame, the
-    RampVO)."""
+LAYOUT_KERNEL = {"fused3": "K1", "fused4": "K6", "fused2": "K5",
+                 "folded": "K4"}
+
+
+def run_main_path(torch, counters, input_mode, frames, layout="fused3"):
+    """RampVO at 480x640, M=96, bf16, `input_mode`, CORR_LAYOUT `layout`:
+    FRAMES frames and an events-only frame after every tenth, then
+    final_refinement(2) and terminate, with every launch counter set to 0
+    just before and read just after. The encoder kernel of the mode (K2: 3
+    launches per encoded frame, K3: 1) and the layout's correlation kernel
+    (one per update) must have run exactly as often as the path asks, and
+    every other kernel never. Returns (counts, median steady ms/frame,
+    the RampVO)."""
     from rampvo_tpu_torch.models.vonet import VONet, init_weights
     from rampvo_tpu_torch.vo import RampVO, VOConfig
 
     cfg = VOConfig(BUFFER_SIZE=512, MAX_FRAMES=512, PATCHES_PER_FRAME=M,
                    MIXED_PRECISION=True, PROBE_THRESH=-1.0,
-                   KEYFRAME_THRESH=0.0)
+                   KEYFRAME_THRESH=0.0, CORR_LAYOUT=layout)
     net = init_weights(VONet(input_mode), torch.Generator().manual_seed(0))
     vo = RampVO(cfg, net, input_mode=input_mode, ht=H, wd=W, device="cuda",
                 seed=0)
@@ -460,23 +705,24 @@ def run_main_path(torch, counters, input_mode, frames):
 
     st = vo.state
     encoded = FRAMES + events_only
-    want = {"K1": 12 + (FRAMES - 8) + 2,
-            "K2": 3 * encoded if input_mode == "MultiScale" else 0,
-            "K3": encoded if input_mode == "SingleScale" else 0,
-            "K7": 0, "K8": 0}
+    want = dict.fromkeys(counters, 0)
+    want.update({LAYOUT_KERNEL[layout]: 12 + (FRAMES - 8) + 2,
+                 "K2": 3 * encoded if input_mode == "MultiScale" else 0,
+                 "K3": encoded if input_mode == "SingleScale" else 0})
+    what = f"{input_mode} {layout}"
     if not st.initialized or st.n != FRAMES:
-        fail(f"{input_mode} main path: initialized={st.initialized} n={st.n}")
+        fail(f"{what} main path: initialized={st.initialized} n={st.n}")
     if counts != want:
-        fail(f"{input_mode} launch counts {counts}, want {want}")
+        fail(f"{what} launch counts {counts}, want {want}")
     if not bool(torch.isfinite(st.poses[:st.counter]).all()) \
             or traj.shape != (FRAMES, 7) or not (abs(traj).max() < 1e6):
-        fail(f"{input_mode} main path: non-finite poses or bad trajectory")
+        fail(f"{what} main path: non-finite poses or bad trajectory")
     steady = sorted(times[10:])
     ms = 1e3 * steady[len(steady) // 2]
-    print(f"main path 480x640 M=96 {input_mode} bf16: {FRAMES} frames + "
-          f"{events_only} events-only, median steady frame {ms:.3f} ms "
-          f"(frames 10..), init-burst frame {1e3 * times[7]:.1f} ms; "
-          f"launches {counts}")
+    print(f"main path 480x640 M=96 {input_mode} bf16 CORR_LAYOUT {layout}: "
+          f"{FRAMES} frames + {events_only} events-only, median steady frame "
+          f"{ms:.3f} ms (frames 10..), init-burst frame "
+          f"{1e3 * times[7]:.1f} ms; launches {counts}")
     return counts, ms, vo
 
 
@@ -592,10 +838,10 @@ def run_cli_phase(torch, counters):
                 "stamped_groundtruth.txt", "stamped_traj_estimate.txt")]
             est = np.loadtxt(files[1])
             counts = {k: c.launches for k, c in counters.items()}
-            want = {"K1": 12 + (n_vo - 8) + 12,
-                    "K2": 3 * len(data) if mode == "MultiScale" else 0,
-                    "K3": len(data) if mode == "SingleScale" else 0,
-                    "K7": 0, "K8": 0}
+            want = dict.fromkeys(counters, 0)
+            want.update({"K1": 12 + (n_vo - 8) + 12,
+                         "K2": 3 * len(data) if mode == "MultiScale" else 0,
+                         "K3": len(data) if mode == "SingleScale" else 0})
             if counts != want:
                 fail(f"CLI phase {mode}: launch counts {counts}, want {want}")
             if not (np.isfinite(ate) and ate != 1000.0) \
@@ -780,7 +1026,8 @@ def run_train_main_path(torch, counters):
             torch.cuda.synchronize()
             counts = {k: c.launches for k, c in counters.items()}
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            want = {"K1": 0, "K2": 0, "K3": 0, "K7": 54, "K8": 54}
+            want = dict.fromkeys(counters, 0)
+            want.update({"K7": 54, "K8": 54})
             if counts != want:
                 fail(f"training launch counts {counts}, want {want}")
             hist = list(loop.history)
@@ -846,6 +1093,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k3-variants", action="store_true",
                     help="only compare the K3 build variants")
+    ap.add_argument("--k6-splits", action="store_true",
+                    help="only time K6 at several patches per block")
     args = ap.parse_args()
     try:
         import torch
@@ -857,10 +1106,14 @@ def main() -> int:
         return 2
     try:
         from rampvo_tpu_torch.ops import build
+        from rampvo_tpu_torch.ops import corr_band_kernels as bk
         from rampvo_tpu_torch.ops import corr_kernels as ck
+        from rampvo_tpu_torch.ops import corr_paired_kernels as pk
         from rampvo_tpu_torch.ops import corr_train_kernels as ctk
         from rampvo_tpu_torch.ops import encoder_kernels as ek
         from rampvo_tpu_torch.ops import singlescale_kernels as sk
+        from rampvo_tpu_torch.probes import dynlane as p1
+        from rampvo_tpu_torch.probes import grid_overhead as p2
     except ImportError as e:
         print(f"rampvo_tpu_torch not found next to chip_smoke.py: {e}",
               file=sys.stderr)
@@ -875,9 +1128,14 @@ def main() -> int:
     if args.k3_variants:
         compare_k3_variants(torch, sk, build)
         return 0
+    if args.k6_splits:
+        build.build_all(["corr_lattice", "corr_lattice_cb"])
+        compare_k6_splits(torch, ck)
+        return 0
     t = time.perf_counter()
     logs = build.build_all(["corr_lattice", "lstm_fold", "lstm_carry_fold",
-                            "corr_train"])
+                            "corr_train", "corr_lattice_cb", "corr_paired",
+                            "corr_bands", "probes"])
     print(f"built kernels in {time.perf_counter() - t:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -886,52 +1144,82 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    k2, k1, k3, k7, k8 = {}, {}, {}, {}, {}
+    k2, k1, k3, k7, k8, lay, probes = {}, {}, {}, {}, {}, {}, {}
     check_lstm_fold(torch, ek, k2)
     check_corr_lattice(torch, ck, k1)
+    check_corr_layouts(torch, ck, pk, bk, lay)
     check_lstm_carry_fold(torch, sk, k3)
     check_corr_train(torch, ctk, k7, k8)
     counters = {"K1": ck.corr_lattice, "K2": ek.lstm_fold_cm,
-                "K3": sk.lstm_carry_fold_cm, "K7": ctk.corr_train_cuda,
-                "K8": ctk.corr_train_bwd_cuda}
+                "K3": sk.lstm_carry_fold_cm, "K4": bk.corr_lattice_bands,
+                "K5": pk.corr_lattice_paired, "K6": ck.corr_lattice_cb,
+                "K7": ctk.corr_train_cuda, "K8": ctk.corr_train_bwd_cuda,
+                "P1": p1.dynlane, "P2": p2.grid_probe}
+    check_probes(torch, p1, p2, counters, probes)
     for mode in ("MultiScale", "SingleScale"):
         check_small_slice(torch, mode)
         check_small_training(torch, mode, counters)
+    for layout in ("fused2", "fused4", "folded"):
+        check_small_slice(torch, "MultiScale", layout)
 
     frames = make_frames(torch, FRAMES, H, W, 1, "cuda")
     intr = torch.tensor([320.0, 320.0, W / 2, H / 2], device="cuda")
-    n_ms, ms_ms, vo = run_main_path(torch, counters, "MultiScale", frames)
-    profile_frames(torch, vo, frames[:4], intr, ms_ms)
-    n_ss, ms_ss, vo = run_main_path(torch, counters, "SingleScale", frames)
-    profile_frames(torch, vo, frames[:4], intr, ms_ss)
-    del vo
+    paths, summary = {}, []
+    for mode, layout in (("MultiScale", "fused3"), ("SingleScale", "fused3"),
+                         ("MultiScale", "fused2"), ("MultiScale", "fused4"),
+                         ("MultiScale", "folded")):
+        counts, ms, vo = run_main_path(torch, counters, mode, frames, layout)
+        busy, calls = profile_frames(torch, vo, frames[:4], intr, ms)
+        paths[mode, layout] = counts
+        summary.append(f"{mode} {layout} {ms:.3f} ms/frame, device busy "
+                       f"{busy:.3f} ms/frame, {calls:.0f} kernels/frame")
+        del vo
+        torch.cuda.empty_cache()
+    print("main paths: " + "; ".join(summary))
     run_eviction_pass(torch, frames)
     run_cli_phase(torch, counters)
     del frames
     torch.cuda.empty_cache()
     n_tr, _, _, _ = run_train_main_path(torch, counters)
 
+    n_ms = paths["MultiScale", "fused3"]
+    n_ss = paths["SingleScale", "fused3"]
+    ker = dict(route="cuda", library_ms=None)
     kernels = [
-        dict(name="corr_lattice", route="cuda",
-             source="rampvo_tpu_torch/csrc/corr_lattice.cu",
+        dict(name="corr_lattice", source="rampvo_tpu_torch/csrc/corr_lattice.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:1117",
-             launches=n_ms["K1"], library_ms=None, **k1["bf16"]),
-        dict(name="lstm_fold_cm", route="cuda",
-             source="rampvo_tpu_torch/csrc/lstm_fold.cu",
+             launches=n_ms["K1"], **ker, **k1["bf16"]),
+        dict(name="lstm_fold_cm", source="rampvo_tpu_torch/csrc/lstm_fold.cu",
              replaces="rampvo_tpu/ops/encoder_pallas.py:77",
-             launches=n_ms["K2"], library_ms=None, **k2["bf16"]),
-        dict(name="lstm_carry_fold_cm", route="cuda",
+             launches=n_ms["K2"], **ker, **k2["bf16"]),
+        dict(name="lstm_carry_fold_cm",
              source="rampvo_tpu_torch/csrc/lstm_carry_fold.cu",
              replaces="rampvo_tpu/ops/encoder_pallas.py:235",
-             launches=n_ss["K3"], library_ms=None, **k3["bf16"]),
-        dict(name="corr_train_fwd", route="cuda",
-             source="rampvo_tpu_torch/csrc/corr_train.cu",
+             launches=n_ss["K3"], **ker, **k3["bf16"]),
+        dict(name="corr_bands", source="rampvo_tpu_torch/csrc/corr_bands.cu",
+             replaces="rampvo_tpu/ops/corr_pallas.py:461",
+             launches=paths["MultiScale", "folded"]["K4"], **ker,
+             **lay["K4"]["bf16"]),
+        dict(name="corr_paired", source="rampvo_tpu_torch/csrc/corr_paired.cu",
+             replaces="rampvo_tpu/ops/corr_pallas.py:721",
+             launches=paths["MultiScale", "fused2"]["K5"], **ker,
+             **lay["K5"]["bf16"]),
+        dict(name="corr_lattice_cb",
+             source="rampvo_tpu_torch/csrc/corr_lattice_cb.cu",
+             replaces="rampvo_tpu/ops/corr_pallas.py:1486",
+             launches=paths["MultiScale", "fused4"]["K6"], **ker,
+             **lay["K6"]["bf16"]),
+        dict(name="corr_train_fwd", source="rampvo_tpu_torch/csrc/corr_train.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:1766",
-             launches=n_tr["K7"], library_ms=None, **k7["f32"]),
-        dict(name="corr_train_bwd", route="cuda",
-             source="rampvo_tpu_torch/csrc/corr_train.cu",
+             launches=n_tr["K7"], **ker, **k7["f32"]),
+        dict(name="corr_train_bwd", source="rampvo_tpu_torch/csrc/corr_train.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:2002",
-             launches=n_tr["K8"], library_ms=None, **k8["f32"]),
+             launches=n_tr["K8"], **ker, **k8["f32"]),
+        dict(name="dynlane", source="rampvo_tpu_torch/csrc/probes.cu",
+             replaces="scripts/probe_dynlane.py:50", **ker, **probes["P1"]),
+        dict(name="grid_probe", source="rampvo_tpu_torch/csrc/probes.cu",
+             replaces="scripts/probe_grid_overhead.py:70", **ker,
+             **probes["P2"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

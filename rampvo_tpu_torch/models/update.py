@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.neighbors import neighbors
 from .blocks import GatedResidual, GradClip, SoftAgg
@@ -41,8 +42,12 @@ class Update(nn.Module):
                                nn.Sigmoid())
 
     def forward(self, net, inp, corr, ii, jj, kk, valid=None, lattice=None,
-                lattice_contig: bool = False, agg_ids=None):
+                lattice_contig: bool = False, agg_ids=None, corr_w1=None):
         """net [E, DIM]; corr [E, 882] (reference layout); ii/jj/kk [E].
+
+        `corr_w1`: the first correlation weight folded for another layout
+        of `corr` (`models.vonet.fold_corr_fc1`); None reads the reference
+        layout with `corr.0`'s own weight.
 
         `lattice=(NI, T, M)`: the edge set is the full lattice in row-major
         order; `inp` may then arrive t-compressed as [NI*M, DIM]. Only the
@@ -56,13 +61,16 @@ class Update(nn.Module):
         once, so no torch.unique (a host sync) runs per call."""
         if lattice is not None and not lattice_contig:
             raise NotImplementedError("lattice updates need lattice_contig")
+        if corr_w1 is None:
+            cf = self.corr(corr)
+        else:
+            cf = self.corr[1:](F.linear(corr, corr_w1, self.corr[0].bias))
         if lattice is not None and inp.shape[0] != net.shape[0]:
             NI, T, M = lattice
             net = (net.reshape(NI, T, M, -1) + inp.reshape(NI, 1, M, -1)
-                   + self.corr(corr).reshape(NI, T, M, -1)
-                   ).reshape(net.shape[0], -1)
+                   + cf.reshape(NI, T, M, -1)).reshape(net.shape[0], -1)
         else:
-            net = net + inp + self.corr(corr)
+            net = net + inp + cf
         net = self.norm(net)
 
         if lattice is not None:

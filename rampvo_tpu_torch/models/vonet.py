@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.corr import avg_pool2d, patchify as gather_patches
+from ..ops.corr_perms import folded_corr_perm, paired_corr_perm
 from .encoders import MultiScaleEncoder, SingleScaleEncoder
 from .update import Update
 
@@ -49,6 +50,27 @@ class VONet(nn.Module):
         fmap, imap = self.patchify.encoder.encode_window(events, images, mask,
                                                          n_out)
         return fmap / 4.0, imap / 4.0
+
+
+def fold_corr_fc1(net: VONet, layout: str):
+    """The first weight of the update's correlation MLP (`update.corr.0`)
+    for a kernel's output layout (port of rampvo_tpu/models/vonet.py::
+    fold_corr_fc1): "paired" -> [384, 1152], reference columns gathered
+    through `paired_corr_perm`, zero columns where it is -1; "folded" ->
+    [384, 882], columns permuted by `folded_corr_perm`. A copy in the
+    weight's dtype and device; the state_dict is untouched. Fold once per
+    network, not per update."""
+    W = net.update.corr[0].weight.detach()
+    if layout == "paired":
+        idx = torch.tensor(paired_corr_perm(3, 3), dtype=torch.long,
+                           device=W.device)
+        Wp = W[:, idx.clamp(min=0)]
+        return torch.where((idx >= 0)[None, :], Wp, torch.zeros_like(Wp))
+    if layout == "folded":
+        inv = torch.tensor(folded_corr_perm(3, 3), dtype=torch.long,
+                           device=W.device)
+        return W[:, inv].contiguous()
+    raise ValueError(f"unknown correlation layout {layout!r}")
 
 
 def init_weights(net: nn.Module, generator: torch.Generator):

@@ -3,7 +3,8 @@
 Each kernel source under csrc/ has a plain C interface; `nvcc` compiles it
 into a shared library under rampvo_tpu_torch/_build/ at first use and
 ctypes loads it (no PyTorch headers, so a build takes seconds). The
-library name carries a hash of the source, so an edited source rebuilds.
+library name carries a hash of the source and of the shared headers
+(csrc/*.cuh), so an edited source or header rebuilds.
 Nothing here runs at import time.
 """
 
@@ -44,6 +45,7 @@ def _flags(defines=()) -> list:
 
 def _lib_path(name: str, defines=()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(defines)).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
@@ -98,11 +100,12 @@ def load(name: str, signatures: dict, defines=()) -> ctypes.CDLL:
         if lib is None:
             finish_build(start_build(name, defines))
             lib = ctypes.CDLL(str(_lib_path(name, defines)))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
+            _LIBS[key] = lib
+        for fn, argtypes in signatures.items():  # several wrappers, one lib
+            f = getattr(lib, fn)
+            if f.argtypes is None:
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-            _LIBS[key] = lib
         return lib
 
 

@@ -49,6 +49,26 @@ def patchify(net, coords, radius: int, mode: str = "bilinear"):
             + fy * fx * patches[:, :, 1:, 1:])
 
 
+def corr_raw(gmap, fmap, coords, ii, jj, radius: int = 3):
+    """The unblended (2R+2)^2 correlation windows of `corr`: [E, P, P, D, D]
+    float32, window dims (y, x), taps at floor(coords) - R + (dy, dx)."""
+    _, H, W, _ = fmap.shape
+    R = radius
+    D = 2 * R + 2
+    f1 = gmap[ii.long()].float()                             # [E, P, P, C]
+    x0 = torch.floor(coords[..., 0]).long()
+    y0 = torch.floor(coords[..., 1]).long()
+    # fully-out-of-bounds windows clamp into the zero region
+    y0c = y0.clamp(-D, H + D)
+    x0c = x0.clamp(-D, W + D)
+    dd = torch.arange(D, device=coords.device) - R
+    yy = y0c[..., None, None] + dd[:, None]                  # [E, P, P, D, 1]
+    xx = x0c[..., None, None] + dd[None, :]                  # [E, P, P, 1, D]
+    nn_ = jj.long()[:, None, None, None, None]
+    f2 = _gather_2d(fmap, nn_, yy, xx).float()               # [E,P,P,D,D,C]
+    return torch.einsum("epqc,epqyxc->epqyx", f1, f2)
+
+
 def corr(gmap, fmap, coords, ii, jj, radius: int = 3):
     """Local correlation volume (corr_cuda_forward,
     correlation_kernel.cu:83-136,221-232).
@@ -58,25 +78,12 @@ def corr(gmap, fmap, coords, ii, jj, radius: int = 3):
     Returns [E, P, P, (2R+1)^2] float32, window dims ordered (x, y) as in
     the reference's final permute."""
     E, P, _, _ = coords.shape
-    Nf, H, W, C = fmap.shape
     R = radius
-    D = 2 * R + 2
-    f1 = gmap[ii.long()].float()                             # [E, P, P, C]
+    vol = corr_raw(gmap, fmap, coords, ii, jj, radius)
     x = coords[..., 0]
     y = coords[..., 1]
-    x0 = torch.floor(x).long()
-    y0 = torch.floor(y).long()
-    # fully-out-of-bounds windows clamp into the zero region
-    y0c = y0.clamp(-D, H + D)
-    x0c = x0.clamp(-D, W + D)
-    dd = torch.arange(D, device=coords.device) - R
-    yy = y0c[..., None, None] + dd[:, None]                  # [E, P, P, D, 1]
-    xx = x0c[..., None, None] + dd[None, :]                  # [E, P, P, 1, D]
-    nn_ = jj.long()[:, None, None, None, None]
-    f2 = _gather_2d(fmap, nn_, yy, xx).float()               # [E,P,P,D,D,C]
-    vol = torch.einsum("epqc,epqyxc->epqyx", f1, f2)
-    fx = (x - x0.float())[..., None, None]
-    fy = (y - y0.float())[..., None, None]
+    fx = (x - torch.floor(x))[..., None, None]
+    fy = (y - torch.floor(y))[..., None, None]
     d = 2 * R + 1
     out = ((1 - fy) * (1 - fx) * vol[..., :d, :d]
            + (1 - fy) * fx * vol[..., :d, 1:]

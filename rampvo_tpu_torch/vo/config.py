@@ -1,14 +1,23 @@
 """VO runtime configuration (port of rampvo_tpu/vo/config.py).
 
-The reference's TPU-only knobs (CORR_IMPL, CORR_LAYOUT, PALLAS_ENCODER,
-CELL_REPROJECT, CELL_LINEARIZE) are left out: the port always runs the
-lattice path, and the tensor's device picks kernel or plain version.
-`from_yaml` consumes the reference's config_vo files unchanged.
+The port always runs the lattice path, and the tensor's device picks
+kernel or plain version, so the reference's CORR_IMPL, PALLAS_ENCODER,
+CELL_REPROJECT and CELL_LINEARIZE are left out. CORR_LAYOUT is kept: it
+picks the update's correlation kernel and the layout it hands to the
+update operator (see CORR_LAYOUTS). `from_yaml` consumes the reference's
+config_vo files unchanged; an unknown CORR_LAYOUT raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+# CORR_LAYOUT -> the column layout its kernel hands the update operator
+# (vo/runtime.py::_lattice_corr): fused3 K1 and fused4 K6 emit corr_fc1's
+# own [E, 882] order; fused2 K5 the paired and folded K4 (+ its PyTorch
+# finish) the folded layout, read through models.vonet.fold_corr_fc1.
+CORR_LAYOUTS = {"fused3": "reference", "fused4": "reference",
+                "fused2": "paired", "folded": "folded"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +41,21 @@ class VOConfig:
 
     MAX_FRAMES: int = 4096       # global frame-id capacity (>= total frames)
     MEM: int = 40                # feature ring depth (slots)
+
+    # the update's lattice correlation (ref vo/config.py:73); one of
+    # CORR_LAYOUTS. The reference sends any other string to its folded
+    # kernel but folds corr_fc1 for the paired layout; the port raises.
+    CORR_LAYOUT: str = "fused3"
+
+    def __post_init__(self):
+        if self.CORR_LAYOUT not in CORR_LAYOUTS:
+            raise ValueError(f"CORR_LAYOUT {self.CORR_LAYOUT!r} is not one of "
+                             f"{sorted(CORR_LAYOUTS)}")
+
+    @property
+    def corr_fc1_layout(self) -> str:
+        """Column layout of the correlation the update operator reads."""
+        return CORR_LAYOUTS[self.CORR_LAYOUT]
 
     @property
     def M(self) -> int:

@@ -7,8 +7,12 @@ tensors are updated in place. Three per-frame decisions are read back on
 the host, as the reference does: the probe gate (pre-init only), the init
 burst and the keyframe eviction. Everything else stays on the device.
 
-Per update the correlation runs through `ops.corr_kernels.corr_lattice`
-(the Hopper kernel on CUDA tensors) and the encoder chain through
+Per update the correlation runs through the kernel `cfg.CORR_LAYOUT` picks
+(vo/config.py CORR_LAYOUTS: K1 `corr_lattice`, K6 `corr_lattice_cb`, K5
+`corr_lattice_paired` or K4 `corr_lattice2_stacked(folded=True)`; the
+Hopper kernel on CUDA tensors), and the update operator reads its layout
+through a corr_fc1 weight folded once per driver; the encoder chain runs
+through
 `ops.encoder_kernels.lstm_fold_cm` (MultiScale) or
 `ops.singlescale_kernels.lstm_carry_fold_cm` (SingleScale); the motion
 probe's M-edge correlation is the plain exact `ops.corr.corr`, as in the
@@ -31,10 +35,13 @@ from ..models.vonet import (
     VONet,
     extract_patches,
     filter_features,
+    fold_corr_fc1,
     select_coords_event_bias,
 )
 from ..ops.corr import avg_pool2d, corr, corr_stack
-from ..ops.corr_kernels import corr_lattice
+from ..ops.corr_band_kernels import corr_lattice2_stacked
+from ..ops.corr_kernels import corr_lattice, corr_lattice_cb
+from ..ops.corr_paired_kernels import corr_lattice_paired
 from ..ops.encoder_kernels import multiscale_encode
 from ..ops.singlescale_kernels import (
     singlescale_encode,
@@ -215,20 +222,34 @@ def _reproject_lattice_planar(cfg: VOConfig, state: VOState):
             uc.reshape(NC, M), vc.reshape(NC, M))
 
 
+def _lattice_corr(cfg: VOConfig, *args):
+    """The update's lattice correlation in cfg.CORR_LAYOUT's kernel and
+    output layout (ref vo/runtime.py:342-422)."""
+    if cfg.CORR_LAYOUT == "fused4":
+        return corr_lattice_cb(*args)
+    if cfg.CORR_LAYOUT == "fused2":
+        return corr_lattice_paired(*args)
+    if cfg.CORR_LAYOUT == "folded":
+        return corr_lattice2_stacked(*args, folded=True)
+    return corr_lattice(*args)
+
+
 def _edge_corr_ctx_lattice(cfg: VOConfig, state: VOState):
     """Correlation + context for the full lattice. Returns (target [E, 2]
-    center reprojections, corr_in [E, 882], ctx [NI*M, DIM] t-compressed).
+    center reprojections, corr_in [E, 882 or 1152] in cfg.CORR_LAYOUT's
+    layout, ctx [NI*M, DIM] t-compressed).
 
     The context of lattice row i is the imap of its host frame's patches,
-    looked up from the row's host directly (the reference reads it through
-    the sanitized t = 0 edge, which is wrong for rows whose t = 0 cell is
-    dead; see ROADMAP)."""
+    looked up from the row's host directly in every layout (the reference
+    reads it through the sanitized t = 0 edge, which is wrong for rows
+    whose t = 0 cell is dead; see ROADMAP)."""
     M, MEM, NI = cfg.M, cfg.MEM, cfg.NI
     u, v, uc, vc = _reproject_lattice_planar(cfg, state)
     target = torch.stack([uc.reshape(-1), vc.reshape(-1)], dim=-1)
-    corr_in = corr_lattice(
-        state.gmap_r, state.fmap1_r, state.fmap2_r, u, v, state.cell_valid,
-        state.n, state.slotmap, cfg.PATCH_LIFETIME, (NI, cfg.T, M))
+    corr_in = _lattice_corr(
+        cfg, state.gmap_r, state.fmap1_r, state.fmap2_r, u, v,
+        state.cell_valid, state.n, state.slotmap, cfg.PATCH_LIFETIME,
+        (NI, cfg.T, M))
     hosts, _ = _lattice_hosts(cfg, state)
     slot_k = state.slotmap[hosts.clamp(0, state.slotmap.shape[0] - 1)]
     gidx = (slot_k.clamp(0, MEM - 1)[:, None] * M
@@ -239,7 +260,8 @@ def _edge_corr_ctx_lattice(cfg: VOConfig, state: VOState):
 
 def _edge_corr_ctx(cfg: VOConfig, state: VOState, ii, jj, kk):
     """Exact correlation + context for an arbitrary edge set (the probe's
-    M edges; Ramp_vo.py:175-182)."""
+    M edges; Ramp_vo.py:175-182), in the reference layout whatever
+    cfg.CORR_LAYOUT, as the JAX probe."""
     M, MEM = cfg.M, cfg.MEM
     P = state.gmap_r.shape[-3]
     L = state.l2g.shape[0]
@@ -263,7 +285,7 @@ def _edge_corr_ctx(cfg: VOConfig, state: VOState, ii, jj, kk):
 
 def _probe_median(cfg: VOConfig, update_fn, state: VOState):
     """Median predicted flow for the new, uncommitted frame
-    (Ramp_vo.py:210-225)."""
+    (Ramp_vo.py:210-225); `update_fn` reads the reference layout."""
     M, n = cfg.M, state.n
     dev = state.poses.device
     kk = (n - 1) * M + torch.arange(M, device=dev)
@@ -425,15 +447,20 @@ def _half(cfg: VOConfig, vonet: VONet) -> VONet:
     return vonet.eval()
 
 
-def make_update_fn(cfg: VOConfig, net: VONet, half: bool):
+def make_update_fn(cfg: VOConfig, net: VONet, half: bool,
+                   layout: str = "reference"):
     """update_fn(net, ctx, corr, ii, jj, kk, valid, lattice) -> (net',
-    (delta, weight)) in float32; `half` runs the operator in bf16."""
+    (delta, weight)) in float32; `half` runs the operator in bf16 (corr
+    cast too, in every layout, as the reference's runtime.py:826).
+    `layout`: the column layout of `corr` ("reference", "paired" or
+    "folded"); its corr_fc1 weight is folded here, once."""
+    w1 = None if layout == "reference" else fold_corr_fc1(net, layout)
 
     def update_fn(h, ctx, corr_in, ii, jj, kk, valid, lattice):
         dt = torch.bfloat16 if half else torch.float32
         h2, (delta, weight) = net.update(
             h.to(dt), ctx.to(dt), corr_in.to(dt), ii, jj, kk, valid, lattice,
-            lattice_contig=True)
+            lattice_contig=True, corr_w1=w1)
         return h2.float(), (delta.float(), weight.float())
 
     return update_fn
@@ -450,7 +477,9 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
     """
     dev = resolve_device(device)
     net_h = _half(cfg, vonet)
-    update_fn = make_update_fn(cfg, net_h, cfg.MIXED_PRECISION)
+    update_fn = make_update_fn(cfg, net_h, cfg.MIXED_PRECISION,
+                               cfg.corr_fc1_layout)
+    probe_fn = make_update_fn(cfg, net_h, cfg.MIXED_PRECISION)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
 
@@ -495,7 +524,7 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
 
         # motion-probe gate (pre-init only, Ramp_vo.py:384-387)
         if not state.initialized and state.n > 0:
-            med = _probe_median(cfg, update_fn, state)
+            med = _probe_median(cfg, probe_fn, state)
             if bool(med < cfg.PROBE_THRESH):
                 g = state.counter - 1
                 state.delta_parent[g] = g - 1
@@ -548,8 +577,9 @@ def make_encode_only(encode_fn):
 
 def make_final_updates(cfg: VOConfig, vonet: VONet, iters: int = 12):
     """Terminal refinement: `iters` extra updates in float32
-    (evaluate.py:254-255)."""
-    update_fn = make_update_fn(cfg, vonet.eval(), half=False)
+    (evaluate.py:254-255), corr_fc1 folded once for cfg.CORR_LAYOUT."""
+    update_fn = make_update_fn(cfg, vonet.eval(), half=False,
+                               layout=cfg.corr_fc1_layout)
 
     @torch.no_grad()
     def final(state):

@@ -352,7 +352,8 @@ def test_port_imports_no_jax():
     libraries h5py, hdf5plugin, PIL, cv2 and yaml and the training
     loggers' tensorboard and wandb blocked (the card's machine has none of
     some of them), which the port imports only inside the functions that
-    use them. The walk reaches the training slice's modules."""
+    use them. The walk reaches the training and layout slices' modules
+    and the probes."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
@@ -376,5 +377,8 @@ def test_port_imports_no_jax():
     assert res.returncode == 0 and lines[-1:] == ["ok"], res.stderr
     for mod in ("ops.corr_train_kernels", "train.forward", "train.loss",
                 "train.step", "ckpt.train_state", "cli.train", "data.tartan",
-                "data.augmentation", "data.frame_graph", "utils.logger"):
+                "data.augmentation", "data.frame_graph", "utils.logger",
+                "ops.corr_perms", "ops.corr_paired_kernels",
+                "ops.corr_band_kernels", "probes.dynlane",
+                "probes.grid_overhead"):
         assert "rampvo_tpu_torch." + mod in lines, mod
