@@ -4,13 +4,17 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --k3-variants    # only K3's build variants, timed
     python3 chip_smoke.py --k6-splits      # only K6 at several block sizes
+    python3 chip_smoke.py --k1-variants    # only K1's build variants, timed
+    python3 chip_smoke.py --k8-variants    # only K8's build variants, timed
 
 Phases: (1) print the card, build the kernels from csrc/ (one nvcc each,
 all started together); (2) hold each kernel (K1 corr_lattice, K2
 lstm_fold_cm, K3 lstm_carry_fold_cm, K4 corr_bands, K5 corr_paired, K6
 corr_lattice_cb, K7/K8 the training correlation's forward and backward)
 against its plain PyTorch version at the main paths' full-size shapes and
-time both; hold K4-K6 against K1 (K6 and K5 bit for bit, K4 with its
+time both (K1 and K7/K8 on two coordinate sets, pixels spread +-3 px and
+patch-shaped, and on a smaller adversarial set that drives the kernels'
+slow path, borders and non-finite coordinates); hold K4-K6 against K1 (K6 and K5 bit for bit, K4 with its
 folded finish within two bf16 roundings); run the probes P1 (dynlane) and
 P2 (grid_probe, three variants and a host-clock launch loop) against their
 plain versions; (3) check small VO runs and small trainings on the card
@@ -190,10 +194,30 @@ def compare_k3_variants(torch, sk, build):
               f"{out['f32']['ms']:.4f} ms; ptxas {regs}")
 
 
-def synthetic_lattice(torch, dt, seed=3):
+def patch_grid(torch):
+    """[3, 3, 2] (x, y) offsets of a 3x3 patch, -1..1 px."""
+    ar = torch.arange(3.0, device="cuda") - 1
+    return torch.stack(torch.meshgrid(ar, ar, indexing="xy"), -1)
+
+
+def max_err_nan(k, p):
+    """max |k - p| where p is not NaN; None when the NaNs of k and p are
+    not at the same places."""
+    import torch
+
+    nan = torch.isnan(p)
+    if not torch.equal(torch.isnan(k), nan):
+        return None
+    return (torch.where(nan, torch.zeros_like(k), k - p)).abs().max().item()
+
+
+def synthetic_lattice(torch, dt, seed=3, coords="spread3"):
     """A full-size lattice (NI=25, T=25, M=96, MEM=40, 120x160 and 30x40
     rings) at a steady-state n with a seeded mix of dead cells, and patch
-    coordinates spread over and beyond the map borders."""
+    coordinates spread over and beyond the map borders: `coords`
+    "spread3" scatters a patch's 9 pixels +-3 px around its center,
+    "patch" puts them on a 3x3 grid +-1 px with 0.2 px jitter (the shape
+    of a reprojected patch)."""
     from rampvo_tpu_torch.vo.config import VOConfig
 
     cfg = VOConfig()
@@ -208,6 +232,9 @@ def synthetic_lattice(torch, dt, seed=3):
     cen = (torch.rand(NC, M, 1, 2, generator=g, device="cuda")
            * torch.tensor([w1 + 16.0, h1 + 16.0], device="cuda") - 8.0)
     off = torch.rand(NC, M, 9, 2, generator=g, device="cuda") * 6.0 - 3.0
+    if coords == "patch":
+        off = patch_grid(torch).reshape(9, 2) + 0.2 * torch.randn(
+            NC, M, 9, 2, generator=g, device="cuda")
     uv = (cen + off).reshape(NC, M * 9, 2)
     cell_valid = torch.rand(NI, T, generator=g, device="cuda") < 0.85
     n = 60
@@ -217,45 +244,204 @@ def synthetic_lattice(torch, dt, seed=3):
             cell_valid, n, slotmap, r, (NI, T, M))
 
 
-def check_corr_lattice(torch, ck, out):
-    """K1 on the synthetic full-size lattice, bf16 and f32. Tolerance: max
+def adversarial_coords(torch, n, w1, h1, g, nan=True):
+    """[n, 3, 3, 2] level-1 coords that stress the kernels' box arithmetic,
+    by patch index mod 8: 0 a plain patch; 1 pixels +-7 px apart (spans
+    beyond the box cap: the slow path); 2 boxes crossing a border; 3 boxes
+    wholly outside the map; 4 all nine pixels identical; 5 integer
+    coordinates (fraction 0); 6 a patch with one far pixel (+-1e30); 7 a
+    patch with one NaN, +inf or -inf pixel coordinate (`nan` False: +-inf
+    only). Returns (coords, mask of the patches of kind 7)."""
+    ru = lambda *s: torch.rand(*s, generator=g, device="cuda")
+    size = torch.tensor([float(w1), float(h1)], device="cuda")
+    kind = torch.arange(n, device="cuda") % 8
+    cen = ru(n, 1, 1, 2) * (size - 16.0) + 8.0
+    edge_pt = torch.stack([torch.where(ru(n) < 0.5, -0.5, w1 - 0.5),
+                           ru(n) * h1], -1)
+    swap = (ru(n) < 0.5)[:, None]
+    edge_pt = torch.where(swap, edge_pt, torch.stack(
+        [ru(n) * w1, torch.where(ru(n) < 0.5, -0.5, h1 - 0.5)], -1))
+    far = torch.where(ru(n, 2) < 0.5, -14.0 - 20 * ru(n, 2),
+                      size + 14.0 + 20 * ru(n, 2))
+    k = kind[:, None, None, None]
+    cen = torch.where(k == 2, edge_pt[:, None, None], cen)
+    cen = torch.where(k == 3, far[:, None, None], cen)
+    co = cen + patch_grid(torch) + 0.2 * torch.randn(
+        n, 3, 3, 2, generator=g, device="cuda")
+    co = torch.where(k == 1, cen + ru(n, 3, 3, 2) * 14.0 - 7.0, co)
+    co = torch.where(k == 4, cen + 0.37, co)
+    co = torch.where(k == 5, torch.round(co), co)
+    idx = torch.arange(n, device="cuda")
+    bad = torch.tensor([1e30, -1e30], device="cuda")[(idx // 8) % 2]
+    co[:, 1, 2, 0] = torch.where(kind == 6, bad, co[:, 1, 2, 0])
+    bad = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                       device="cuda")[(idx // 8) % (3 if nan else 2)]
+    co[:, 2, 0, 1] = torch.where(kind == 7, bad, co[:, 2, 0, 1])
+    return co.contiguous(), kind == 7
+
+
+def adversarial_lattice(torch, dt, seed=13, NC=64):
+    """A small lattice (NC cells of M patches, 8 ring slots, a few dead
+    cells) over `adversarial_coords`, in K1's argument order."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h1, w1, MEM = H // 4, W // 4, 8
+    gmap = torch.randn(MEM, M, 3, 3, 128, generator=g, device="cuda").to(dt)
+    f1 = torch.randn(MEM, h1, w1, 128, generator=g, device="cuda").to(dt)
+    f2 = torch.randn(MEM, h1 // 4, w1 // 4, 128, generator=g,
+                     device="cuda").to(dt)
+    co, _ = adversarial_coords(torch, NC * M, w1, h1, g)
+    co = co.reshape(NC, M * 9, 2)
+    cells = torch.randint(0, MEM, (NC, 2), generator=g, device="cuda",
+                          dtype=torch.int32)
+    cells[::7, 0] = -1
+    return (gmap, f1, f2, co[..., 0].contiguous(), co[..., 1].contiguous(),
+            cells, M)
+
+
+def check_corr_lattice(torch, ck, out, defines=()):
+    """K1 on the synthetic full-size lattice, bf16 and f32, with the 9
+    pixels of a patch spread +-3 px (the set the kernels line reports) and
+    patch-shaped (3x3 grid +-1 px), both compared element-wise with the
+    plain version and timed; then on the adversarial lattice (smaller E:
+    spreads beyond the box cap, boxes crossing and outside each border,
+    identical pixels, integer coordinates, NaN / inf / 1e30 coordinates,
+    dead cells) against the plain version, and the plain box mirror
+    (float32, unrounded) against it too, NaN outputs (non-finite
+    coordinates) at the same places. Tolerance: max
     |kernel - plain| <= tol * max |plain| with tol = 1e-2 (bf16: one output
-    rounding) or 1e-5 (f32: summation order only)."""
+    rounding) or 1e-5 (f32: summation order only). The kernel's
+    slow-path counter must be 0 on the patch-shaped set and equal the box
+    mirror's count (> 0) on the adversarial set. `defines` picks a build
+    variant of the kernel."""
     for dt, name, tol in ((torch.bfloat16, "bf16", 1e-2),
                           (torch.float32, "f32", 1e-5)):
-        (gmap, f1, f2, u, v, cv, n, slotmap, r,
-         lat) = synthetic_lattice(torch, dt)
-        NI, T, Mm = lat
-        cells = ck.cell_tables(NI, T, r, n, cv, slotmap, gmap.shape[0])
-        a = (gmap, f1, f2, u, v, cells, Mm)
-        k = ck.corr_lattice_cuda(*a).float()
+        for coords in ("spread3", "patch"):
+            (gmap, f1, f2, u, v, cv, n, slotmap, r,
+             lat) = synthetic_lattice(torch, dt, coords=coords)
+            NI, T, Mm = lat
+            cells = ck.cell_tables(NI, T, r, n, cv, slotmap, gmap.shape[0])
+            a = (gmap, f1, f2, u, v, cells, Mm)
+            ck.corr_lattice_slow_edges(defines=defines)
+            k = ck.corr_lattice_cuda(*a, defines=defines).float()
+            slow = ck.corr_lattice_slow_edges(defines=defines)
+            p = ck.corr_lattice_ref(*a).float()
+            torch.cuda.synchronize()
+            err = (k - p).abs().max().item()
+            scale = p.abs().max().item()
+            if not err <= tol * scale:
+                fail(f"corr_lattice {name} {coords}: max err {err} (scale "
+                     f"{scale})")
+            live = (cells[:, 0] >= 0)
+            n_live = int(live.sum())
+            if n_live == 0 or not bool(
+                    (k.reshape(NI * T, Mm, -1)[~live] == 0).all()):
+                fail("corr_lattice: dead cells must be zero / no live cells")
+            if coords == "patch" and slow != 0:
+                fail(f"corr_lattice {name}: {slow} patch-shaped edges took "
+                     "the slow path")
+            ms = cuda_ms(lambda: ck.corr_lattice_cuda(*a, defines=defines),
+                         reps=20)
+            plain = cuda_ms(lambda: ck.corr_lattice_ref(*a), reps=2, warm=1)
+            es = torch.finfo(dt).bits // 8
+            E = NI * T * Mm
+            Ev = n_live * Mm
+            t_slots = torch.unique(cells[live, 0]).numel()
+            g_slots = torch.unique(cells[live, 1]).numel()
+            nbytes = (E * 882 * es + 2 * E * 9 * 4 + cells.numel() * 4
+                      + g_slots * Mm * 9 * 128 * es
+                      + t_slots * (f1[0].numel() + f2[0].numel()) * es)
+            flops = Ev * 9 * 2 * 64 * 128 * 2
+            bms, by = bound_ms(nbytes, flops, name)
+            # what the kernel reads through the caches: every tap of every
+            # live edge's two boxes, once
+            le = live.repeat_interleave(Mm)
+            taps = sum(float((b.bw * b.bh)[le].sum()) for b in (
+                ck.window_boxes(u.reshape(E, 9) * sc, v.reshape(E, 9) * sc,
+                                f.shape[1], f.shape[2])
+                for f, sc in ((f1, 1.0), (f2, 0.25))))
+            print(f"K1 corr_lattice {name} {coords}: kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), live "
+                  f"cells {n_live}/{NI * T}, slow-path edges {slow}, max "
+                  f"err {err:.3e} (scale {scale:.3e}); {taps / Ev:.1f} box "
+                  f"taps per live edge, {taps * 128 * es / 1e9:.3f} GB of "
+                  f"tap reads, {taps * 128 * es / ms / 1e9:.3f} TB/s")
+            res = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                       max_abs_err=err)
+            if coords == "spread3":
+                out[name] = res
+            else:
+                out[name]["patch_ms"] = ms
+        a = adversarial_lattice(torch, dt)
+        ck.corr_lattice_slow_edges(defines=defines)
+        k = ck.corr_lattice_cuda(*a, defines=defines).float()
+        slow = ck.corr_lattice_slow_edges(defines=defines)
         p = ck.corr_lattice_ref(*a).float()
+        pbox, slow_ref = ck.corr_lattice_box_ref(*a)
         torch.cuda.synchronize()
-        err = (k - p).abs().max().item()
-        scale = p.abs().max().item()
-        if not err <= tol * scale:
-            fail(f"corr_lattice {name}: max err {err} (scale {scale})")
-        live = (cells[:, 0] >= 0)
-        n_live = int(live.sum())
-        if n_live == 0 or not bool((k.reshape(NI * T, Mm, -1)[~live] == 0).all()):
-            fail("corr_lattice: dead cells must be zero / no live cells")
-        ms = cuda_ms(lambda: ck.corr_lattice_cuda(*a), reps=20)
-        plain = cuda_ms(lambda: ck.corr_lattice_ref(*a), reps=2, warm=1)
-        es = torch.finfo(dt).bits // 8
-        E = NI * T * Mm
-        Ev = n_live * Mm
-        t_slots = torch.unique(cells[live, 0]).numel()
-        g_slots = torch.unique(cells[live, 1]).numel()
-        nbytes = (E * 882 * es + 2 * E * 9 * 4 + cells.numel() * 4
-                  + g_slots * Mm * 9 * 128 * es
-                  + t_slots * (f1[0].numel() + f2[0].numel()) * es)
-        flops = Ev * 9 * 2 * 64 * 128 * 2
-        bms, by = bound_ms(nbytes, flops, name)
-        print(f"K1 corr_lattice {name}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), live cells "
-              f"{n_live}/{NI * T}, max err {err:.3e} (scale {scale:.3e})")
-        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         max_abs_err=err)
+        scale = torch.nan_to_num(p).abs().max().item()
+        err, errb = max_err_nan(k, p), max_err_nan(pbox, p)
+        n_nan, n_slow = int(torch.isnan(p).sum()), int(slow_ref.sum())
+        dead = (a[5][:, 0] < 0).repeat_interleave(a[6])
+        if err is None or errb is None or not err <= tol * scale \
+                or not errb <= tol * scale or n_nan == 0 or n_slow == 0 \
+                or bool((k[dead] != 0).any()):
+            fail(f"corr_lattice {name} adversarial: max err {err}, box "
+                 f"mirror {errb} (scale {scale}), {n_nan} NaN outputs, "
+                 f"{n_slow} slow edges")
+        if slow != n_slow:
+            fail(f"corr_lattice adversarial: the kernel sent {slow} edges "
+                 f"down its slow path, the box mirror {n_slow}")
+        print(f"K1 corr_lattice {name} adversarial E={k.shape[0]}: max err "
+              f"{err:.3e} (scale {scale:.3e}), plain box mirror vs plain "
+              f"{errb:.3e}, NaN outputs at the same {n_nan} places, "
+              f"slow-path edges {slow} (box mirror {n_slow})")
+
+
+K1_VARIANTS = (             # (label, -D defines of csrc/corr_lattice.cu)
+    ("4 edges/block, registers for 4 blocks/SM (shipped)", ()),
+    ("4 edges/block, registers for 5 blocks/SM", ("CORR_MIN_BLOCKS=5",)),
+    ("2 edges/block, 8 blocks/SM", ("CORR_WARPS=2", "CORR_MIN_BLOCKS=8")),
+    ("next tile's loads started before the mmas", ("CORR_PREFETCH=1",)),
+)
+
+K8_VARIANTS = (             # (label, -D defines of csrc/corr_train.cu)
+    ("4 warps/edge (shipped)", ()),
+    ("2 warps/edge", ("K8_WARPS=2",)),
+    ("8 warps/edge", ("K8_WARPS=8",)),
+    ("4 warps/edge, scalar atomics", ("K8_SCALAR_ATOMICS=1",)),
+)
+
+
+def ptxas_lines(log):
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def compare_k1_variants(torch, ck, build):
+    """`--k1-variants`: build K1's variants in parallel, print each one's
+    registers and spills, hold each against the plain version and time it
+    as the K1 check does, in one process."""
+    logs = build.build_all([("corr_lattice", d) for _, d in K1_VARIANTS])
+    for label, d in K1_VARIANTS:
+        out = {}
+        check_corr_lattice(torch, ck, out, defines=d)
+        print(f"K1 variant {label}: bf16 spread3 {out['bf16']['ms']:.4f} ms, "
+              f"patch {out['bf16']['patch_ms']:.4f} ms; f32 "
+              f"{out['f32']['ms']:.4f} / {out['f32']['patch_ms']:.4f} ms; "
+              f"ptxas {ptxas_lines(logs[('corr_lattice', d)])}")
+
+
+def compare_k8_variants(torch, ctk, build):
+    """`--k8-variants`: the same for K8 (with K7, which shares its
+    source)."""
+    logs = build.build_all([("corr_train", d) for _, d in K8_VARIANTS])
+    for label, d in K8_VARIANTS:
+        of, ob = {}, {}
+        check_corr_train(torch, ctk, of, ob, defines=d)
+        print(f"K8 variant {label}: f32 patch {ob['f32']['ms']:.4f} ms, "
+              f"spread3 {ob['f32']['spread3_ms']:.4f} ms; bf16 "
+              f"{ob['bf16']['ms']:.4f} / {ob['bf16']['spread3_ms']:.4f} ms; "
+              f"ptxas {ptxas_lines(logs[('corr_train', d)])}")
 
 
 def check_corr_layouts(torch, ck, pk, bk, outs):
@@ -487,12 +673,14 @@ def compare_k6_splits(torch, ck, splits=(1, 2, 4, 8, 16, 32)):
         print(f"K6 patches per block, {name}, ms: " + ", ".join(times))
 
 
-def synthetic_corr_train(torch, dt, seed=5):
+def synthetic_corr_train(torch, dt, seed=5, coords="patch"):
     """The training correlation's full-size inputs: the recipe's edge
     schedule (15 frames, 80 patches, 18 steps: E = 18000), gmap
     [1200, 3, 3, 128], 120x160 maps and their 4x pool, 3x3 patches whose
-    centers spread over and 8 px beyond the map, and an output gradient
-    with the training forward's per-level keep masks (p = 0.2)."""
+    centers spread over and 8 px beyond the map (`coords` "patch": a 3x3
+    grid +-1 px with 0.2 px jitter, the set the kernels line reports;
+    "spread3": the 9 pixels +-3 px around the center), and an output
+    gradient with the training forward's per-level keep masks (p = 0.2)."""
     from rampvo_tpu_torch.ops.corr import avg_pool2d
     from rampvo_tpu_torch.train.forward import KEEP_P, edge_schedule
 
@@ -508,10 +696,10 @@ def synthetic_corr_train(torch, dt, seed=5):
     f1 = f1.to(dt)
     cen = ru(E, 1, 1, 2) * torch.tensor([w1 + 16.0, h1 + 16.0],
                                         device="cuda") - 8.0
-    grid = torch.stack(torch.meshgrid(torch.arange(3.0, device="cuda") - 1,
-                                      torch.arange(3.0, device="cuda") - 1,
-                                      indexing="xy"), -1)
-    coords = (cen + grid + 0.2 * rn(E, 3, 3, 2)).contiguous()
+    off = patch_grid(torch) + 0.2 * rn(E, 3, 3, 2)
+    if coords == "spread3":
+        off = ru(E, 3, 3, 2) * 6.0 - 3.0
+    coords = (cen + off).contiguous()
     kk = torch.as_tensor(s.kk, device="cuda").long()
     jj = torch.as_tensor(s.jj, device="cuda").long()
     lvl = torch.arange(882, device="cuda") % 2
@@ -521,65 +709,149 @@ def synthetic_corr_train(torch, dt, seed=5):
     return gmap, f1, f2, coords, kk, jj, ct
 
 
-def check_corr_train(torch, ctk, out_f, out_b):
+def adversarial_corr_train(torch, dt, seed=17, E=4096):
+    """Training-correlation inputs over `adversarial_coords` at a smaller
+    E: gmap [64 + 8, 3, 3, 128], 4 frames. The patches with an infinite
+    coordinate read gmap rows 64..71, which no other edge reads (their
+    blend weights are NaN: the plain backward puts NaN there, the kernel
+    skips taps outside the map). No NaN coordinate: the plain version's
+    float-to-int conversion of NaN is undefined and differs between the
+    CPU and the card. Returns (args, ct, mask of those rows)."""
+    from rampvo_tpu_torch.ops.corr import avg_pool2d
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+    h1, w1, NG, NF = H // 4, W // 4, 64, 4
+    gmap = rn(NG + 8, 3, 3, 128).to(dt)
+    f1 = rn(NF, h1, w1, 128)
+    f2 = avg_pool2d(f1, 4).to(dt).contiguous()
+    f1 = f1.to(dt)
+    coords, nonfinite = adversarial_coords(torch, E, w1, h1, g, nan=False)
+    kk = torch.randint(0, NG, (E,), generator=g, device="cuda")
+    kk = torch.where(nonfinite, NG + kk % 8, kk)
+    jj = torch.randint(0, NF, (E,), generator=g, device="cuda")
+    keep = torch.rand(E, 1, 2, generator=g, device="cuda") < 0.5
+    ct = (rn(E, 441, 2) * keep).reshape(E, 882)
+    rows = torch.arange(NG + 8, device="cuda") >= NG
+    return (gmap, f1, f2, coords, kk, jj), ct, rows
+
+
+def check_corr_train(torch, ctk, out_f, out_b, defines=()):
     """K7 (forward) and K8 (backward) on the full-size training inputs,
-    bf16 and f32, held against the plain version (`corr_train_ref`,
-    `corr_train_bwd_ref`). Tolerances: forward max |kernel - plain| <=
-    tol * max |plain|, tol = 1e-5 (f32: summation order) or 1e-2 (bf16:
+    bf16 and f32, patch-shaped (the set the kernels line reports) and with
+    the pixels spread +-3 px, each held against the plain version
+    (`corr_train_ref`, `corr_train_bwd_ref`) and timed; K8's slow-path
+    counter must stay 0 on the patch-shaped set. Then K8 on the
+    adversarial inputs (smaller E: spreads beyond the box cap, boxes
+    crossing and outside each border, identical pixels, integer
+    coordinates, 1e30 / inf coordinates) against the plain version
+    and the plain box mirror; the gmap rows that only the inf patches
+    read are left out (the plain backward puts NaN there) and must be
+    finite in the kernel's gradient; the kernel's slow-path count must
+    equal the box mirror's (> 0). Tolerances: forward max |kernel - plain|
+    <= tol * max |plain|, tol = 1e-5 (f32: summation order) or 1e-2 (bf16:
     one output rounding); each of the three gradients within 1e-4 (f32:
     the atomic sums' order changes from run to run) or 2e-2 (bf16) of its
     largest entry. The bounds count each input read once and each output
     written once; K8's operations count the (edge, level) pairs whose
-    output gradient this run keeps (the rest cost one warp vote)."""
+    output gradient this run keeps (the rest cost one pass over their ct
+    row). The wrapper's three zero fills are part of K8's time; they are
+    timed alone once. `defines` picks a build variant of K8."""
+    slow = torch.zeros(1, dtype=torch.int32, device="cuda")
+    bwd = lambda ct, *a: ctk.corr_train_bwd_cuda(ct, *a, slow=slow,
+                                                 defines=defines)
     for dt, name, tf, tb in ((torch.bfloat16, "bf16", 1e-2, 2e-2),
                              (torch.float32, "f32", 1e-5, 1e-4)):
-        gmap, f1, f2, coords, kk, jj, ct = synthetic_corr_train(torch, dt)
-        a = (gmap, f1, f2, coords, kk, jj)
-        E = coords.shape[0]
-        k = ctk.corr_train_cuda(*a).float()
-        p = ctk.corr_train_ref(*a)
-        kb = ctk.corr_train_bwd_cuda(ct, *a)
+        for coords in ("patch", "spread3"):
+            gmap, f1, f2, co, kk, jj, ct = synthetic_corr_train(
+                torch, dt, coords=coords)
+            a = (gmap, f1, f2, co, kk, jj)
+            E = co.shape[0]
+            k = ctk.corr_train_cuda(*a).float()
+            p = ctk.corr_train_ref(*a)
+            slow.zero_()
+            kb = bwd(ct, *a)
+            n_slow = int(slow.item())
+            pb = ctk.corr_train_bwd_ref(ct, *a)
+            torch.cuda.synchronize()
+            err = (k - p).abs().max().item()
+            scale = p.abs().max().item()
+            if not err <= tf * scale:
+                fail(f"corr_train fwd {name} {coords}: max err {err} (scale "
+                     f"{scale})")
+            errb = 0.0
+            for what, x, y in zip(("gmap", "fmap1", "fmap2"), kb, pb):
+                e = (x - y).abs().max().item()
+                sc = y.abs().max().item()
+                if not (sc > 0 and e <= tb * sc):
+                    fail(f"corr_train bwd {name} {coords} grad {what}: max "
+                         f"err {e} (scale {sc})")
+                errb = max(errb, e / sc)
+            if coords == "patch" and n_slow != 0:
+                fail(f"corr_train bwd {name}: {n_slow} patch-shaped edges "
+                     "took the slow path")
+            ms = cuda_ms(lambda: ctk.corr_train_cuda(*a), reps=20)
+            plain = cuda_ms(lambda: ctk.corr_train_ref(*a), reps=2, warm=1)
+            ms_b = cuda_ms(lambda: bwd(ct, *a), reps=20)
+            plain_b = cuda_ms(lambda: ctk.corr_train_bwd_ref(ct, *a), reps=2,
+                              warm=1)
+            fill = cuda_ms(lambda: [torch.zeros_like(x, dtype=torch.float32)
+                                    for x in (gmap, f1, f2)], reps=20)
+            es = torch.finfo(dt).bits // 8
+            maps = (f1.numel() + f2.numel() + gmap.numel())
+            small = E * 9 * 2 * 4 + 2 * E * 4          # coords, kk, jj
+            nbytes = E * 882 * es + maps * es + small
+            flops = E * 9 * 2 * 64 * 128 * 2
+            bms, by = bound_ms(nbytes, flops, name)
+            kept = int((ct.reshape(E, 441, 2) != 0).any(1).sum())
+            nbytes_b = E * 882 * 4 + maps * es + maps * 4 + small
+            flops_b = kept * 9 * 64 * 128 * 4
+            bms_b, by_b = bound_ms(nbytes_b, flops_b, name)
+            print(f"K7 corr_train fwd {name} {coords} E={E}: kernel {ms:.4f} "
+                  f"ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), max "
+                  f"err {err:.3e} (scale {scale:.3e})")
+            print(f"K8 corr_train bwd {name} {coords} E={E}, {kept}/{2 * E} "
+                  f"(edge, level) pairs kept: kernel {ms_b:.4f} ms (of which "
+                  f"the wrapper's three zero fills {fill:.4f} ms), plain "
+                  f"{plain_b:.4f} ms, bound {bms_b:.4f} ms ({by_b}), "
+                  f"slow-path edges {n_slow}, max rel err {errb:.3e}")
+            if coords == "spread3":
+                out_b[name]["spread3_ms"] = ms_b
+                continue
+            out_f[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                               bound_by=by, max_abs_err=err)
+            out_b[name] = dict(ms=ms_b, plain_ms=plain_b, bound_ms=bms_b,
+                               bound_by=by_b, zero_fill_ms=fill,
+                               max_abs_err=max((x - y).abs().max().item()
+                                               for x, y in zip(kb, pb)))
+        a, ct, rows = adversarial_corr_train(torch, dt)
+        slow.zero_()
+        kb = bwd(ct, *a)
+        n_slow = int(slow.item())
         pb = ctk.corr_train_bwd_ref(ct, *a)
+        pbox, slow_ref = ctk.corr_train_bwd_box_ref(ct, *a)
         torch.cuda.synchronize()
-        err = (k - p).abs().max().item()
-        scale = p.abs().max().item()
-        if not err <= tf * scale:
-            fail(f"corr_train fwd {name}: max err {err} (scale {scale})")
-        errb = 0.0
-        for what, x, y in zip(("gmap", "fmap1", "fmap2"), kb, pb):
-            e = (x - y).abs().max().item()
+        errs = []
+        for what, x, y, z in zip(("gmap", "fmap1", "fmap2"), kb, pb, pbox):
+            if what == "gmap":
+                if not bool(torch.isfinite(x[rows]).all()) \
+                        or not bool(torch.isnan(y[rows]).any()):
+                    fail("corr_train bwd adversarial: the inf patches' "
+                         "gmap rows")
+                x, y, z = x[~rows], y[~rows], z[~rows]
             sc = y.abs().max().item()
-            if not (sc > 0 and e <= tb * sc):
-                fail(f"corr_train bwd {name} grad {what}: max err {e} "
-                     f"(scale {sc})")
-            errb = max(errb, e / sc)
-        ms = cuda_ms(lambda: ctk.corr_train_cuda(*a), reps=20)
-        plain = cuda_ms(lambda: ctk.corr_train_ref(*a), reps=2, warm=1)
-        ms_b = cuda_ms(lambda: ctk.corr_train_bwd_cuda(ct, *a), reps=20)
-        plain_b = cuda_ms(lambda: ctk.corr_train_bwd_ref(ct, *a), reps=2,
-                          warm=1)
-        es = torch.finfo(dt).bits // 8
-        maps = (f1.numel() + f2.numel() + gmap.numel())
-        small = E * 9 * 2 * 4 + 2 * E * 4          # coords, kk, jj
-        nbytes = E * 882 * es + maps * es + small
-        flops = E * 9 * 2 * 64 * 128 * 2
-        bms, by = bound_ms(nbytes, flops, name)
-        kept = int((ct.reshape(E, 441, 2) != 0).any(1).sum())
-        nbytes_b = E * 882 * 4 + maps * es + maps * 4 + small
-        flops_b = kept * 9 * 64 * 128 * 4
-        bms_b, by_b = bound_ms(nbytes_b, flops_b, name)
-        print(f"K7 corr_train fwd {name} E={E}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), max err "
-              f"{err:.3e} (scale {scale:.3e})")
-        print(f"K8 corr_train bwd {name} E={E}, {kept}/{2 * E} (edge, level) "
-              f"pairs kept: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
-              f"bound {bms_b:.4f} ms ({by_b}), max rel err {errb:.3e}")
-        out_f[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                           max_abs_err=err)
-        out_b[name] = dict(ms=ms_b, plain_ms=plain_b, bound_ms=bms_b,
-                           bound_by=by_b,
-                           max_abs_err=max((x - y).abs().max().item()
-                                           for x, y in zip(kb, pb)))
+            e, ez = (x - y).abs().max().item(), (z - y).abs().max().item()
+            if not (sc > 0 and e <= tb * sc and ez <= 1e-4 * sc):
+                fail(f"corr_train bwd {name} adversarial grad {what}: max "
+                     f"err {e}, box mirror {ez} (scale {sc})")
+            errs.append(e / sc)
+        if n_slow == 0 or n_slow != int(slow_ref.sum()):
+            fail(f"corr_train bwd {name} adversarial: the kernel sent "
+                 f"{n_slow} edges down its slow path, the box mirror "
+                 f"{int(slow_ref.sum())}")
+        print(f"K8 corr_train bwd {name} adversarial E={ct.shape[0]}: max "
+              f"rel err {max(errs):.3e}, slow-path edges {n_slow} (box "
+              f"mirror {int(slow_ref.sum())})")
 
 
 # ---------------------------------------------------------------------------
@@ -687,6 +959,10 @@ def run_main_path(torch, counters, input_mode, frames, layout="fused3"):
     intr = torch.tensor([320.0, 320.0, W / 2, H / 2], device="cuda")
     torch.cuda.synchronize()
 
+    from rampvo_tpu_torch.ops import corr_kernels as ck
+
+    if layout == "fused3":
+        ck.corr_lattice_slow_edges()
     for c in counters.values():
         c.launches = 0
     times, events_only = [], 0
@@ -722,7 +998,9 @@ def run_main_path(torch, counters, input_mode, frames, layout="fused3"):
     print(f"main path 480x640 M=96 {input_mode} bf16 CORR_LAYOUT {layout}: "
           f"{FRAMES} frames + {events_only} events-only, median steady frame "
           f"{ms:.3f} ms (frames 10..), init-burst frame "
-          f"{1e3 * times[7]:.1f} ms; launches {counts}")
+          f"{1e3 * times[7]:.1f} ms; launches {counts}"
+          + (f"; K1 slow-path edges over the path "
+             f"{ck.corr_lattice_slow_edges()}" if layout == "fused3" else ""))
     return counts, ms, vo
 
 
@@ -1095,6 +1373,10 @@ def main() -> int:
                     help="only compare the K3 build variants")
     ap.add_argument("--k6-splits", action="store_true",
                     help="only time K6 at several patches per block")
+    ap.add_argument("--k1-variants", action="store_true",
+                    help="only compare the K1 build variants")
+    ap.add_argument("--k8-variants", action="store_true",
+                    help="only compare the K8 build variants")
     args = ap.parse_args()
     try:
         import torch
@@ -1132,15 +1414,25 @@ def main() -> int:
         build.build_all(["corr_lattice", "corr_lattice_cb"])
         compare_k6_splits(torch, ck)
         return 0
+    if args.k1_variants or args.k8_variants:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if args.k1_variants:
+            compare_k1_variants(torch, ck, build)
+        if args.k8_variants:
+            compare_k8_variants(torch, ctk, build)
+        return 0
     t = time.perf_counter()
     logs = build.build_all(["corr_lattice", "lstm_fold", "lstm_carry_fold",
                             "corr_train", "corr_lattice_cb", "corr_paired",
                             "corr_bands", "probes"])
     print(f"built kernels in {time.perf_counter() - t:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(log):
+            print(f"  ptxas {name}: {line}")
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill " \
+                    "loads" not in line and name.startswith("corr_"):
+                fail(f"{name}: a correlation kernel spills registers")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -16,10 +16,10 @@
 // Bound on the H100: bytes. At E = 60000 the output is E * 1152 values
 // (138 MB in bf16), the rest as K1 (csrc/corr_lattice.cu); the finish then
 // reads the bands again and writes E * 882 values.
-// Design: K1's warp per (edge, pixel) (corr_window.cuh). After the xor
-// shuffles every lane of column dx holds the whole column, so lane (dx, cg)
-// writes rows dy = cg, cg + 4 of both levels: four stores cover the
-// pixel's 128 contiguous values.
+// Design: K1's warp per edge (corr_window.cuh: window unions, mma.sync
+// dots, raw windows in shared memory). Per level, lane (dy = lane / 4,
+// dx = 2 (lane % 4)) copies two raw taps of every pixel's window out of
+// the box: a warp's store covers the level's 64 contiguous values.
 
 #include "corr_window.cuh"
 
@@ -29,27 +29,21 @@ using namespace corrwin;
 
 struct BandStore {
   static constexpr int NCOL = PP * 2 * D * D;
-  static constexpr int PIX = 2 * D * D;
+  static constexpr int STAGE = 0;
   template <typename T>
-  __device__ static void live(T* orow, const float (&raw1)[D],
-                              const float (&raw2)[D], const float (&)[D],
-                              const float (&)[D], float, float, int dx,
-                              int cg) {
-#pragma unroll
-    for (int dy = 0; dy < D; ++dy) {
-      if ((dy & 3) != cg) continue;
-      Vec<T>::store1(orow + dy * D + dx, raw1[dy]);
-      Vec<T>::store1(orow + D * D + dy * D + dx, raw2[dy]);
+  __device__ static void level(int l, T* orow, const float* raw,
+                               const Geom& gm, int lane, float*) {
+    const int dy = lane >> 2, dx = (lane & 3) * 2;
+    for (int q = 0; q < PP; ++q) {
+      const int ox = __shfl_sync(FULL, gm.ox, q);
+      const int oy = __shfl_sync(FULL, gm.oy, q);
+      const float* p = raw + q * RS + (oy + dy) * gm.bw + ox + dx;
+      Vec<T>::store2(orow + (q * 2 + l) * D * D + dy * D + dx, p[0], p[1]);
     }
   }
   template <typename T>
-  __device__ static void dead(T* orow, int dx, int cg) {
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int dy = cg + 4 * s;
-      Vec<T>::store1(orow + dy * D + dx, 0.f);
-      Vec<T>::store1(orow + D * D + dy * D + dx, 0.f);
-    }
+  __device__ static void dead(T* orow, int lane) {
+    zero_row<T>(orow, NCOL, lane);
   }
 };
 
@@ -61,11 +55,7 @@ extern "C" int corr_bands_launch(const void* gmap, const void* fmap1,
                                  const void* v, const void* cells, void* out,
                                  int E, int M, int H1, int W1, int H2, int W2,
                                  int is_bf16, void* stream) {
-  using namespace corrwin;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_lattice<__nv_bfloat16, BandStore>(
-        gmap, fmap1, fmap2, u, v, cells, out, E, M, H1, W1, H2, W2, s);
-  return launch_lattice<float, BandStore>(gmap, fmap1, fmap2, u, v, cells,
-                                          out, E, M, H1, W1, H2, W2, s);
+  return corrwin::launch_lattice_dtype<BandStore>(
+      gmap, fmap1, fmap2, u, v, cells, out, E, M, H1, W1, H2, W2, is_bf16,
+      stream);
 }

@@ -16,12 +16,20 @@
 //
 // Bound on the H100: bytes. At the full lattice (E = 60000) the output is
 // E * 882 values (106 MB in bf16) against ~17.7 GFLOP of dot products, and
-// the touched feature-ring slots add ~190 MB of reads.
-// Design (corr_window.cuh): one warp per (edge, q), edge-major: the 9
-// pixels of one edge run in neighbouring warps of one block, so their
-// overlapping windows are served from L1. Accumulation is f32 for f32 and
-// bf16 inputs. csrc/corr_lattice_cb.cu (K6) computes the same outputs with
-// a target-major decomposition and the same arithmetic.
+// the touched feature-ring slots add ~190 MB of reads. What limits the
+// kernel is not device memory, though: the first design (one warp per
+// (edge, pixel)) ran at 14x this bound on ~17.7 GB of L1/L2 window re-reads
+// and f32 FMAs on the CUDA cores. This design (corr_window.cuh): one warp
+// per edge; per level the union box of the 9 pixels' windows is read once
+// (~2.8-4.5 GB of cache reads per launch) and dotted with all 9 pixels by
+// mma.sync.m16n8k16 bf16 with f32 accumulation, B fragments straight from
+// global memory; the raw dots go through shared memory, and the blended
+// row leaves in coalesced stores. A level whose 9 floors span more than
+// CAP = 8 taps on an axis takes an exact per-pixel slow path in the same
+// kernel. float32 inputs keep f32 FMAs in the same box decomposition
+// (lane = 4 channels, partial dots folded over the warp).
+// csrc/corr_lattice_cb.cu (K6) computes the same outputs with a
+// target-major decomposition and the same per-edge routine.
 
 #include "corr_window.cuh"
 
@@ -35,11 +43,20 @@ extern "C" int corr_lattice_launch(const void* gmap, const void* fmap1,
                                    void* out, int E, int M, int H1, int W1,
                                    int H2, int W2, int is_bf16,
                                    void* stream) {
-  using namespace corrwin;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_lattice<__nv_bfloat16, RefStore>(
-        gmap, fmap1, fmap2, u, v, cells, out, E, M, H1, W1, H2, W2, s);
-  return launch_lattice<float, RefStore>(gmap, fmap1, fmap2, u, v, cells,
-                                         out, E, M, H1, W1, H2, W2, s);
+  return corrwin::launch_lattice_dtype<corrwin::RefStore>(
+      gmap, fmap1, fmap2, u, v, cells, out, E, M, H1, W1, H2, W2, is_bf16,
+      stream);
+}
+
+// Reads into *count (host memory) how many edges of this library's
+// launches took the slow path since the last reset, after waiting for
+// the device; `reset` then sets the counter to 0. Returns the cudaError_t.
+extern "C" int corr_lattice_slow_edges(unsigned int* count, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(count, corrwin::slow_edges,
+                                         sizeof(unsigned int));
+  if (err == cudaSuccess && reset) {
+    const unsigned int zero = 0;
+    err = cudaMemcpyToSymbol(corrwin::slow_edges, &zero, sizeof(zero));
+  }
+  return (int)err;
 }

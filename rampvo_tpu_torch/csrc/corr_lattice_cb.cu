@@ -8,8 +8,9 @@
 // t-range [lo, hi] with a loop whose bounds it reads from the group table
 // (ops/corr_kernels.py::cell_tables_a), so one group's cells all read the
 // same target slot (the feature ring of one frame stays hot in L2 while the
-// group runs). Each output uses K1's arithmetic (the same corr_window.cuh
-// code), so K6 equals K1 bit for bit.
+// group runs). Its work item is a (cell, patch) edge handled by one warp
+// with K1's per-edge routine (corr_window.cuh::edge: window unions,
+// mma.sync dots, the exact slow path), so K6 equals K1 bit for bit.
 //
 // Differences from the TPU kernel. A block writes its own output rows in
 // lattice order, so the target-major output and the row gather that
@@ -17,8 +18,8 @@
 // gives NTGT * ceil(T / TB) = 36 * 2 = 72 groups at the main path's
 // lattice, too few blocks for 132 SMs, and of very unequal work (0 to 13
 // cells); so each group is also split over ranges of EB patches (EB = 4:
-// 72 * 24 = 1728 blocks of 8 warps; `chip_smoke.py --k6-splits` times
-// EB = 1..32 against K1, and 4 is the fastest in bf16). Cells
+// 72 * 24 = 1728 blocks of 4 warps, one patch per warp and cell;
+// `chip_smoke.py --k6-splits` times EB = 1..32 against K1). Cells
 // that no group walks (host below 0, or target outside the last NTGT
 // frames) are zeroed by the grid's trailing NC blocks, one per lattice
 // cell, which write zeros where cell_tables_a's `walked` is 0; cells a
@@ -39,7 +40,7 @@ using namespace corrwin;
 // cell c, or -1 - c when the cell is dead; host gmap slot); walked [NC]
 // int32.
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 corr_lattice_cb_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
                        const T* __restrict__ fmap2,
                        const float* __restrict__ u,
@@ -50,6 +51,7 @@ corr_lattice_cb_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
                        int NB, int splits, int EB, int TB, int M,
                        int H1, int W1, int H2, int W2) {
   constexpr int NCOL = RefStore::NCOL;
+  __shared__ __align__(16) float raw[WARPS][RAW + RefStore::STAGE];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int blk = blockIdx.x;
   if (blk >= NB * splits) {  // zero fill of one unwalked lattice cell
@@ -63,33 +65,33 @@ corr_lattice_cb_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
       for (size_t i = threadIdx.x; i < n16; i += blockDim.x)
         p[i] = make_uint4(0u, 0u, 0u, 0u);
     } else {
-      for (size_t i = threadIdx.x; i < n; i += blockDim.x)
-        Vec<T>::store1(base + i, 0.f);
+      for (size_t i = 2 * threadIdx.x; i < n; i += 2 * blockDim.x)
+        Vec<T>::store2(base + i, 0.f, 0.f);  // NCOL is even
     }
     return;
   }
+  // The group's live t-range x the block's patches, one (cell, patch) edge
+  // per warp and turn. The tables are read again each turn (L1) rather
+  // than held in registers across the edge routine.
   const int g = blk / splits, m0 = (blk % splits) * EB;
-  const int* gr = groups + 6 * g;
-  const int slot_j = gr[2], lo = gr[4], hi = gr[5];
-  const int nitems = min(EB, M - m0) * PP;
-  const T* f1 = fmap1 + (size_t)slot_j * H1 * W1 * C;
-  const T* f2 = fmap2 + (size_t)slot_j * H2 * W2 * C;
-  for (int tc = lo; tc <= hi; ++tc) {  // the group's live t-range
+  const int npatch = min(EB, M - m0);
+  const int lo = groups[6 * g + 4];
+  const int total = (groups[6 * g + 5] - lo + 1) * npatch;  // <= 0: empty
+  for (int it = warp; it < total; it += WARPS) {
+    const int tc = lo + it / npatch, m = m0 + it % npatch;
     const int* ce = cells_a + 2 * ((size_t)g * TB + tc);
-    const int cenc = ce[0], gslot = ce[1];
+    const int cenc = ce[0], gslot = ce[1], slot_j = groups[6 * g + 2];
     const int c = cenc >= 0 ? cenc : -1 - cenc;
-    for (int it = warp; it < nitems; it += WARPS) {
-      const int m = m0 + it / PP, q = it % PP;
-      const size_t e = (size_t)c * M + m;
-      T* orow = out + e * NCOL + q * RefStore::PIX;
-      if (cenc < 0) {
-        RefStore::dead<T>(orow, lane >> 2, lane & 3);
-        continue;
-      }
-      pixel<T, RefStore>(gmap + (((size_t)gslot * M + m) * PP + q) * C, f1,
-                         f2, H1, W1, H2, W2, u[e * PP + q], v[e * PP + q],
-                         lane, orow);
+    const size_t e = (size_t)c * M + m;
+    T* orow = out + e * NCOL;
+    if (cenc < 0) {
+      RefStore::dead<T>(orow, lane);
+      continue;
     }
+    edge<T, RefStore>(gmap + ((size_t)gslot * M + m) * PP * C,
+                      fmap1 + (size_t)slot_j * H1 * W1 * C,
+                      fmap2 + (size_t)slot_j * H2 * W2 * C, H1, W1, H2, W2,
+                      u + e * PP, v + e * PP, raw[warp], lane, orow);
   }
 }
 

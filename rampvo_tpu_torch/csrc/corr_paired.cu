@@ -14,12 +14,13 @@
 //
 // Bound on the H100: bytes. At E = 60000 the output is E * 1152 values
 // (138 MB in bf16, against K1's 106 MB), the rest as K1.
-// Design: K1's warp per (edge, pixel) (corr_window.cuh). Lane (dx, cg)
-// writes columns (l, b, a = dx) for b = cg, cg + 4 at both levels, zeros
-// where a or b is 7: the warp's four stores cover all 128 columns of its
-// pixel (256 contiguous bytes in bf16), and the zero columns are written,
-// never left as uninitialised memory (0 * NaN is NaN in the folded
-// weight's product).
+// Design: K1's warp per edge (corr_window.cuh: window unions, mma.sync
+// dots, raw windows in shared memory). Per level, lane (b = lane / 4,
+// a = 2 (lane % 4)) writes columns (l, b, a) and (l, b, a + 1) of every
+// pixel in one store, zeros where a or b is 7: a warp's store covers the
+// level's 64 columns of a pixel (128 contiguous bytes in bf16), and the
+// zero columns are written, never left as uninitialised memory (0 * NaN is
+// NaN in the folded weight's product).
 
 #include "corr_window.cuh"
 
@@ -29,35 +30,28 @@ using namespace corrwin;
 
 struct PairedStore {
   static constexpr int NCOL = PP * 128;
-  static constexpr int PIX = 128;
+  static constexpr int STAGE = 0;
   template <typename T>
-  __device__ static void live(T* orow, const float (&raw1)[D],
-                              const float (&raw2)[D], const float (&n1)[D],
-                              const float (&n2)[D], float x1, float y1,
-                              int dx, int cg) {
-    const float x2 = __fmul_rn(x1, 0.25f), y2 = __fmul_rn(y1, 0.25f);
-    const float fx1 = frac(x1), fy1 = frac(y1);
-    const float fx2 = frac(x2), fy2 = frac(y2);
-#pragma unroll
-    for (int b = 0; b < D; ++b) {
-      if ((b & 3) != cg) continue;
-      float o1 = 0.f, o2 = 0.f;
-      if (b < d && dx < d) {
-        o1 = blend(raw1, n1, b, fx1, fy1);
-        o2 = blend(raw2, n2, b, fx2, fy2);
+  __device__ static void level(int l, T* orow, const float* raw,
+                               const Geom& gm, int lane, float*) {
+    const int b = lane >> 2, a = (lane & 3) * 2;
+    for (int q = 0; q < PP; ++q) {
+      const int ox = __shfl_sync(FULL, gm.ox, q);
+      const int oy = __shfl_sync(FULL, gm.oy, q);
+      const float fx = __shfl_sync(FULL, gm.fx, q);
+      const float fy = __shfl_sync(FULL, gm.fy, q);
+      const float* p = raw + q * RS + (oy + b) * gm.bw + ox + a;
+      float o0 = 0.f, o1 = 0.f;
+      if (b < d) {
+        o0 = blend(p, gm.bw, fx, fy);
+        if (a + 1 < d) o1 = blend(p + 1, gm.bw, fx, fy);
       }
-      Vec<T>::store1(orow + b * 8 + dx, o1);
-      Vec<T>::store1(orow + 64 + b * 8 + dx, o2);
+      Vec<T>::store2(orow + q * 128 + l * 64 + b * 8 + a, o0, o1);
     }
   }
   template <typename T>
-  __device__ static void dead(T* orow, int dx, int cg) {
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int b = cg + 4 * s;
-      Vec<T>::store1(orow + b * 8 + dx, 0.f);
-      Vec<T>::store1(orow + 64 + b * 8 + dx, 0.f);
-    }
+  __device__ static void dead(T* orow, int lane) {
+    zero_row<T>(orow, NCOL, lane);
   }
 };
 
@@ -70,11 +64,7 @@ extern "C" int corr_paired_launch(const void* gmap, const void* fmap1,
                                   void* out, int E, int M, int H1, int W1,
                                   int H2, int W2, int is_bf16,
                                   void* stream) {
-  using namespace corrwin;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_lattice<__nv_bfloat16, PairedStore>(
-        gmap, fmap1, fmap2, u, v, cells, out, E, M, H1, W1, H2, W2, s);
-  return launch_lattice<float, PairedStore>(gmap, fmap1, fmap2, u, v, cells,
-                                            out, E, M, H1, W1, H2, W2, s);
+  return corrwin::launch_lattice_dtype<PairedStore>(
+      gmap, fmap1, fmap2, u, v, cells, out, E, M, H1, W1, H2, W2, is_bf16,
+      stream);
 }

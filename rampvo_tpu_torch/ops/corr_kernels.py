@@ -16,19 +16,31 @@ launch their kernel for CUDA tensors and run `corr_lattice_ref` /
 `corr_lattice_cb_ref` for CPU tensors; nothing falls back. The K4 and K5
 wrappers (ops/corr_band_kernels.py, ops/corr_paired_kernels.py) share
 `cell_tables`, `check_lattice_inputs` and `launch_lattice`.
+
+The kernels read each edge's windows as one box per level (the union of
+its 9 pixels' 8x8 windows, csrc/corr_window.cuh). `window_boxes`,
+`box_passes`, `box_taps` and `corr_lattice_box_ref` mirror that index
+arithmetic (box origin, per-pixel offsets, the cap and its per-pixel slow
+path, borders) in plain PyTorch; the tests and chip_smoke.py hold them
+against `corr_lattice_ref`. No wrapper calls them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
-from .corr import corr, corr_stack
+from .corr import _gather_2d, corr, corr_stack
 
 RADIUS = 3
 C = 128
+D = 2 * RADIUS + 2   # raw window side
+CAP = 8              # largest span of an edge's 9 floors per axis that the
+                     # kernels take as one box (csrc/corr_window.cuh,
+                     # csrc/corr_train.cu)
 
 
 def cell_vmask(NI: int, T: int, r: int, n: int, cell_valid):
@@ -93,8 +105,145 @@ def corr_lattice_ref(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# plain mirror of the kernels' box decomposition
+# ---------------------------------------------------------------------------
+
+class Boxes(NamedTuple):
+    """One level's window boxes of E edges (`window_boxes`)."""
+    x0: torch.Tensor      # [E, 9] floor of each pixel's x (clamped, int64)
+    y0: torch.Tensor
+    bx: torch.Tensor      # [E] map coords of the box's first tap
+    by: torch.Tensor
+    bw: torch.Tensor      # [E] box size in taps (8 where not `fits`)
+    bh: torch.Tensor
+    fits: torch.Tensor    # [E] both spans <= cap: the edge is read as one box
+    ox: torch.Tensor      # [E, 9] each pixel's window offset inside the box
+    oy: torch.Tensor
+    inside: torch.Tensor  # [E] the box meets the map
+
+
+def floor_index(x):
+    """floor(x) as int64 the way the kernels convert it: clamped to +-1e6
+    before the conversion, NaN as -1e6 (fmaxf drops it), so far and
+    non-finite coords land outside every map."""
+    f = torch.nan_to_num(torch.floor(x.float()), nan=-1e6, posinf=1e6,
+                         neginf=-1e6)
+    return f.clamp(-1e6, 1e6).long()
+
+
+def window_boxes(u, v, H: int, W: int, cap: int = CAP) -> Boxes:
+    """The box of each edge at one level: u, v [E, 9] that level's coords of
+    the 9 patch pixels, H, W the level's map size. The union of the 8x8
+    windows at floor(u, v) - 3 is a box of (8 + span_x) x (8 + span_y)
+    taps; an edge whose span exceeds `cap` on an axis does not fit and is
+    read pixel by pixel (8x8 boxes at offset 0)."""
+    x0, y0 = floor_index(u), floor_index(v)
+    xlo, xhi = x0.min(1).values, x0.max(1).values
+    ylo, yhi = y0.min(1).values, y0.max(1).values
+    fits = (xhi - xlo <= cap) & (yhi - ylo <= cap)
+    bw = torch.where(fits, xhi - xlo + D, torch.full_like(xlo, D))
+    bh = torch.where(fits, yhi - ylo + D, torch.full_like(ylo, D))
+    bx, by = xlo - RADIUS, ylo - RADIUS
+    zero = torch.zeros_like(x0)
+    ox = torch.where(fits[:, None], x0 - xlo[:, None], zero)
+    oy = torch.where(fits[:, None], y0 - ylo[:, None], zero)
+    inside = fits & (bx < W) & (bx + bw > 0) & (by < H) & (by + bh > 0)
+    return Boxes(x0, y0, bx, by, bw, bh, fits, ox, oy, inside)
+
+
+def box_passes(b: Boxes, cap: int = CAP):
+    """The kernels' passes over the edges of `b`, as (edge index [n],
+    pixels (a list of q), bx, by, bw, bh [n], ox, oy [n, len(pixels)], box
+    side): one pass reads every fitting edge as one box with all 9 pixels;
+    the edges that do not fit take 9 more, pass q reading pixel q's own
+    8x8 window as the box."""
+    idx = torch.nonzero(b.fits)[:, 0]
+    if idx.numel():
+        yield (idx, list(range(9)), b.bx[idx], b.by[idx], b.bw[idx],
+               b.bh[idx], b.ox[idx], b.oy[idx], D + cap)
+    idx = torch.nonzero(~b.fits)[:, 0]
+    if idx.numel():
+        eight = torch.full_like(idx, D)
+        zero = torch.zeros_like(idx)[:, None]
+        for q in range(9):
+            yield (idx, [q], b.x0[idx, q] - RADIUS, b.y0[idx, q] - RADIUS,
+                   eight, eight, zero, zero, D)
+
+
+def box_taps(fmap, slot, bx, by, bw, bh, side: int):
+    """The taps of n boxes in the kernels' order: tap t = ty * bw + tx for
+    t < bw * bh, the rest of the side * side slots empty. Returns (features
+    [n, side*side, C] float32, zero for taps outside the map or the box;
+    linear index [n, side*side] into fmap's [N*H*W] rows; in-map mask)."""
+    N, H, W, _ = fmap.shape
+    t = torch.arange(side * side, device=fmap.device)[None]
+    ty = t // bw[:, None]
+    tx = t - ty * bw[:, None]
+    y, x = by[:, None] + ty, bx[:, None] + tx
+    inb = (ty < bh[:, None]) & (y >= 0) & (y < H) & (x >= 0) & (x < W)
+    lin = (slot[:, None] * H + y.clamp(0, H - 1)) * W + x.clamp(0, W - 1)
+    f = fmap.reshape(N * H * W, -1)[lin].float()
+    return torch.where(inb[..., None], f, torch.zeros_like(f)), lin, inb
+
+
+def window_pick(ox, oy, bw):
+    """[n, Q, 8, 8] tap index of each pixel's window (dy, dx) inside its
+    box: (oy + dy) * bw + ox + dx."""
+    dd = torch.arange(D, device=bw.device)
+    return ((oy[..., None, None] + dd[:, None]) * bw[:, None, None, None]
+            + ox[..., None, None] + dd[None, :])
+
+
+def corr_lattice_box_ref(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int,
+                         cap: int = CAP, chunk: int = 1024):
+    """`corr_lattice_ref`'s function computed the way the kernels compute
+    it: per level, the dots of the 9 pixel features against the edge's
+    whole box, each pixel's 8x8 window picked out of the box by its
+    offset, then the blend. Returns (out [NC*M, 882] float32, edges that
+    did not fit at either level)."""
+    MEM, _, P, _, _ = gmap_r.shape
+    NC = cells.shape[0]
+    E = NC * M
+    dev = gmap_r.device
+    m = torch.arange(M, device=dev).repeat(NC)
+    slot = cells[:, 0].long().repeat_interleave(M)
+    live = slot >= 0
+    slot = slot.clamp(min=0)
+    g = gmap_r.reshape(MEM * M, P * P, C)[
+        cells[:, 1].long().repeat_interleave(M) * M + m].float()
+    x1, y1 = u.reshape(E, P * P).float(), v.reshape(E, P * P).float()
+    levels, slow = [], torch.zeros(E, dtype=torch.bool, device=dev)
+    for fmap, x, y in ((fmap1_r, x1, y1), (fmap2_r, x1 * 0.25, y1 * 0.25)):
+        b = window_boxes(x, y, fmap.shape[1], fmap.shape[2], cap)
+        slow |= ~b.fits
+        raw = torch.zeros((E, P * P, D, D), dtype=torch.float32, device=dev)
+        for idx, qs, bx, by, bw, bh, ox, oy, side in box_passes(b, cap):
+            for s in range(0, idx.numel(), chunk):
+                c = slice(s, s + chunk)
+                f, _, _ = box_taps(fmap, slot[idx[c]], bx[c], by[c], bw[c],
+                                   bh[c], side)
+                dots = torch.einsum("nqc,ntc->nqt", g[idx[c]][:, qs], f)
+                pick = window_pick(ox[c], oy[c], bw[c])
+                raw[idx[c][:, None], torch.tensor(qs, device=dev)[None]] = \
+                    torch.gather(dots, 2, pick.flatten(2)).reshape(
+                        -1, len(qs), D, D)
+        fx = (x - torch.floor(x))[..., None, None]
+        fy = (y - torch.floor(y))[..., None, None]
+        d = D - 1
+        out = ((1 - fy) * (1 - fx) * raw[..., :d, :d]
+               + (1 - fy) * fx * raw[..., :d, 1:]
+               + fy * (1 - fx) * raw[..., 1:, :d]
+               + fy * fx * raw[..., 1:, 1:])
+        levels.append(out.transpose(-1, -2).reshape(E, P, P, d * d))
+    st = corr_stack(*levels)
+    return torch.where(live[:, None], st, torch.zeros_like(st)), slow & live
+
+
 _SIG = {"corr_lattice_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-        + [ctypes.c_void_p]}
+        + [ctypes.c_void_p],
+        "corr_lattice_slow_edges": [ctypes.POINTER(ctypes.c_uint),
+                                    ctypes.c_int]}
 
 
 def check_lattice_inputs(name: str, gmap_r, fmap1_r, fmap2_r, u, v, M: int,
@@ -124,10 +273,10 @@ def check_lattice_inputs(name: str, gmap_r, fmap1_r, fmap2_r, u, v, M: int,
 
 
 def launch_lattice(lib_name: str, fn: str, ncol: int, gmap_r, fmap1_r,
-                   fmap2_r, u, v, cells, M: int):
-    """Launch a warp-per-(edge, pixel) lattice kernel of csrc/<lib_name>.cu
+                   fmap2_r, u, v, cells, M: int, defines=()):
+    """Launch a warp-per-edge lattice kernel of csrc/<lib_name>.cu
     (K1's contract, `ncol` output columns per edge); returns [E, ncol] in
-    the rings' dtype."""
+    the rings' dtype. `defines` picks a build variant."""
     check_lattice_inputs(lib_name, gmap_r, fmap1_r, fmap2_r, u, v, M,
                          (cells,))
     _, H1, W1, _ = fmap1_r.shape
@@ -137,7 +286,7 @@ def launch_lattice(lib_name: str, fn: str, ncol: int, gmap_r, fmap1_r,
         raise ValueError(f"{lib_name}: coords do not match the cell table")
     dt = gmap_r.dtype
     out = torch.empty((E, ncol), dtype=dt, device=gmap_r.device)
-    lib = build.load(lib_name, {fn: _SIG["corr_lattice_launch"]})
+    lib = build.load(lib_name, {fn: _SIG["corr_lattice_launch"]}, defines)
     err = getattr(lib, fn)(
         gmap_r.data_ptr(), fmap1_r.data_ptr(), fmap2_r.data_ptr(),
         u.data_ptr(), v.data_ptr(), cells.data_ptr(), out.data_ptr(),
@@ -148,13 +297,26 @@ def launch_lattice(lib_name: str, fn: str, ncol: int, gmap_r, fmap1_r,
     return out
 
 
-def corr_lattice_cuda(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int):
-    """Launch the Hopper kernel (same contract as `corr_lattice_ref`)."""
+def corr_lattice_cuda(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int,
+                      defines=()):
+    """Launch the Hopper kernel (same contract as `corr_lattice_ref`);
+    `defines` picks a build variant."""
     out = launch_lattice("corr_lattice", "corr_lattice_launch",
                          2 * (2 * RADIUS + 1) ** 2 * 9, gmap_r, fmap1_r,
-                         fmap2_r, u, v, cells, M)
+                         fmap2_r, u, v, cells, M, defines)
     corr_lattice.launches += 1
     return out
+
+
+def corr_lattice_slow_edges(reset: bool = True, defines=()) -> int:
+    """How many edges of K1's launches took the kernel's slow path
+    (pixel spread beyond CAP) since the last reset; waits for the device."""
+    lib = build.load("corr_lattice", {
+        "corr_lattice_slow_edges": _SIG["corr_lattice_slow_edges"]}, defines)
+    n = ctypes.c_uint(0)
+    build.check(lib.corr_lattice_slow_edges(ctypes.byref(n), int(reset)),
+                "corr_lattice_slow_edges")
+    return n.value
 
 
 def corr_lattice(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
@@ -183,8 +345,8 @@ corr_lattice.launches = 0
 # ---------------------------------------------------------------------------
 
 TB = 13    # lattice offsets t per group (the reference's TB4)
-EB = 4     # patches per block of a group (csrc/corr_lattice_cb.cu; the
-           # fastest bf16 choice of chip_smoke.py --k6-splits)
+EB = 4     # patches per block of a group (csrc/corr_lattice_cb.cu: one
+           # per warp; chip_smoke.py --k6-splits times the choices)
 
 
 def cell_tables_a(NI: int, T: int, r: int, n: int, cell_valid, slotmap,

@@ -11,6 +11,10 @@ of frame jj[e]'s feature maps (level 1 at the coords, level 2 at coords /
 Its gradient reaches gmap and both feature maps; the coords get zero, as
 in the reference.
 
+`corr_train_bwd_box_ref` mirrors K8's box decomposition (gather form
+over each edge's window union, ops/corr_kernels.py::window_boxes) in plain
+PyTorch for the tests and chip_smoke.py; no wrapper calls it.
+
 `corr_train_fused` is one autograd Function on CUDA tensors (K7 going
 forward, K8 in the backward) and the plain version on CPU tensors; nothing
 falls back. The autograd Function saves its inputs, not the windows, so
@@ -25,6 +29,8 @@ import torch
 
 from . import build
 from .corr import _unblend, corr_bwd_from_gv, corr_stack, corr_train
+from .corr_kernels import CAP, D, box_passes, box_taps, window_boxes, \
+    window_pick
 
 RADIUS = 3
 C = 128
@@ -55,10 +61,56 @@ def corr_train_bwd_ref(ct, gmap, fmap1, fmap2, coords, kk, jj):
     return grads[0][0] + grads[1][0], grads[0][1], grads[1][1]
 
 
+def corr_train_bwd_box_ref(ct, gmap, fmap1, fmap2, coords, kk, jj,
+                           cap: int = CAP, chunk: int = 1024):
+    """`corr_train_bwd_ref`'s function computed the way K8 computes it
+    (csrc/corr_train.cu): per level, the output gradient unblended onto
+    the raw taps and scattered into the edge's box, gv [9, box] (zero where
+    a pixel's window does not cover a tap); then, per box tap, grad fmap
+    gets sum_q gv[q, tap] * g[q] once and grad gmap[q] gets gv[q, tap] *
+    f(tap). Edges whose spread exceeds `cap` go pixel by pixel. Returns
+    ((grad gmap, grad fmap1, grad fmap2) float32, edges that did not fit
+    at a level whose output gradient is not all zero: those the kernel
+    sends down its slow path)."""
+    E = ct.shape[0]
+    P = coords.shape[1]
+    dev = ct.device
+    ctl = ct.float().reshape(E, P, P, (2 * RADIUS + 1) ** 2, 2)
+    g = gmap.reshape(-1, P * P, C).float()
+    kk, jj = kk.long(), jj.long()
+    grad_g = torch.zeros_like(g)
+    grads_f, slow = [], torch.zeros(E, dtype=torch.bool, device=dev)
+    for l, (fmap, co) in enumerate(((fmap1, coords), (fmap2, coords * 0.25))):
+        Nf, H, W, _ = fmap.shape
+        x, y = co[..., 0].float(), co[..., 1].float()
+        gv = _unblend(ctl[..., l], x, y, RADIUS).reshape(E, P * P, D * D)
+        b = window_boxes(x.reshape(E, -1), y.reshape(E, -1), H, W, cap)
+        slow |= ~b.fits & (ctl[..., l] != 0).flatten(1).any(1)
+        grad_f = torch.zeros((Nf * H * W, C), dtype=torch.float32, device=dev)
+        for idx, qs, bx, by, bw, bh, ox, oy, side in box_passes(b, cap):
+            for s in range(0, idx.numel(), chunk):
+                c = slice(s, s + chunk)
+                e = idx[c]
+                f, lin, inb = box_taps(fmap, jj[e], bx[c], by[c], bw[c],
+                                       bh[c], side)
+                gvb = torch.zeros((e.numel(), len(qs), side * side),
+                                  dtype=torch.float32, device=dev)
+                gvb.scatter_(2, window_pick(ox[c], oy[c], bw[c]).flatten(2),
+                             gv[e][:, qs])
+                qi = torch.tensor(qs, device=dev)
+                upd = torch.zeros((e.numel(), P * P, C), device=dev)
+                upd[:, qi] = torch.einsum("nqt,ntc->nqc", gvb, f)
+                grad_g.index_add_(0, kk[e], upd)
+                gf = torch.einsum("nqt,nqc->ntc", gvb, g[kk[e]][:, qs])
+                grad_f.index_add_(0, lin[inb], gf[inb])
+        grads_f.append(grad_f.reshape(Nf, H, W, C))
+    return (grad_g.reshape(gmap.shape), grads_f[0], grads_f[1]), slow
+
+
 _SIG = {
     "corr_train_fwd_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
-    "corr_train_bwd_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    "corr_train_bwd_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
 }
 
@@ -108,23 +160,31 @@ def corr_train_cuda(gmap, fmap1, fmap2, coords, kk, jj):
     return out
 
 
-def corr_train_bwd_cuda(ct, gmap, fmap1, fmap2, coords, kk, jj):
+def corr_train_bwd_cuda(ct, gmap, fmap1, fmap2, coords, kk, jj, slow=None,
+                        defines=()):
     """Launch K8 (same contract as `corr_train_bwd_ref`): float32 gradients
-    of gmap, fmap1 and fmap2, summed with atomics."""
+    of gmap, fmap1 and fmap2, summed with atomics. `slow`, a CUDA int32
+    tensor of one element, is increased by the number of edges whose pixel
+    spread exceeded the kernel's box cap (its exact slow path); `defines`
+    picks a build variant."""
     NG, NF, H1, W1, H2, W2, E, coords, kk, jj = _checked(
         gmap, fmap1, fmap2, coords, kk, jj)
     ct = ct.float().contiguous()
     if ct.shape != (E, NCOL) or not ct.is_cuda:
         raise ValueError("corr_train: output gradient must be CUDA [E, 882]")
+    if slow is not None and not (slow.is_cuda and slow.dtype == torch.int32
+                                 and slow.numel() == 1):
+        raise ValueError("corr_train: slow must be one CUDA int32")
     f32 = dict(dtype=torch.float32, device=gmap.device)
     gg = torch.zeros(gmap.shape, **f32)
     g1 = torch.zeros(fmap1.shape, **f32)
     g2 = torch.zeros(fmap2.shape, **f32)
-    lib = build.load("corr_train", _SIG)
+    lib = build.load("corr_train", _SIG, defines)
     err = lib.corr_train_bwd_launch(
         ct.data_ptr(), gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(),
         coords.data_ptr(), kk.data_ptr(), jj.data_ptr(), gg.data_ptr(),
-        g1.data_ptr(), g2.data_ptr(), E, NG, NF, H1, W1, H2, W2,
+        g1.data_ptr(), g2.data_ptr(),
+        None if slow is None else slow.data_ptr(), E, NG, NF, H1, W1, H2, W2,
         int(gmap.dtype == torch.bfloat16),
         torch.cuda.current_stream(gmap.device).cuda_stream)
     build.check(err, "corr_train_bwd_launch")
