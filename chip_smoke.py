@@ -6,6 +6,10 @@
     python3 chip_smoke.py --k6-splits      # only K6 at several block sizes
     python3 chip_smoke.py --k1-variants    # only K1's build variants, timed
     python3 chip_smoke.py --k8-variants    # only K8's build variants, timed
+    python3 chip_smoke.py --k7-variants    # only K7's build variants, timed
+    python3 chip_smoke.py --k2-variants    # only K2's build variants, timed
+    python3 chip_smoke.py --ab DIR         # K7 and K2 here and in the tree
+                                           # at DIR, in turns
 
 Phases: (1) print the card, build the kernels from csrc/ (one nvcc each,
 all started together); (2) hold each kernel (K1 corr_lattice, K2
@@ -14,7 +18,9 @@ corr_lattice_cb, K7/K8 the training correlation's forward and backward)
 against its plain PyTorch version at the main paths' full-size shapes and
 time both (K1 and K7/K8 on two coordinate sets, pixels spread +-3 px and
 patch-shaped, and on a smaller adversarial set that drives the kernels'
-slow path, borders and non-finite coordinates); hold K4-K6 against K1 (K6 and K5 bit for bit, K4 with its
+slow path, borders and non-finite coordinates; K2 scale by scale, in bf16
+also against the plain mirror of its roundings); hold K4-K6 against K1
+(K6 and K5 bit for bit, K4 with its
 folded finish within two bf16 roundings); run the probes P1 (dynlane) and
 P2 (grid_probe, three variants and a host-clock launch loop) against their
 plain versions; (3) check small VO runs and small trainings on the card
@@ -54,8 +60,10 @@ import time
 
 HBM_BPS = 3.35e12                  # H100 SXM device memory, bytes/s
 PEAK = {"bf16": 989e12, "f32": 67e12}   # dense FLOP/s (bf16 tensor, f32 CUDA cores)
+SFU_PER_CLK, SM_CLOCK = 16, 1.98e9      # transcendental ops a clock an SM; boost clock
 H, W, M = 480, 640, 96
 FRAMES = 40
+K2_SCALES = ((16, H * W), (32, (H // 2) * (W // 2)), (64, (H // 4) * (W // 4)))
 
 
 def fail(msg: str):
@@ -78,6 +86,27 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(torch, fn, key: str, n: int = 20) -> float:
+    """Device time in ms per call of `fn` of the kernels whose name holds
+    `key` (torch.profiler's kernel durations over n calls, after one
+    warm-up call): a kernel's own time where the host issues its launches
+    slower than the card runs them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and key in e.key]
+    if not ev:
+        fail(f"no kernel named *{key}* in the profile")
+    return sum(e.self_device_time_total for e in ev) / n / 1e3
+
+
 def bound_ms(nbytes: float, flops: float, dt: str):
     tb, to = nbytes / HBM_BPS, flops / PEAK[dt]
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
@@ -87,43 +116,89 @@ def bound_ms(nbytes: float, flops: float, dt: str):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_lstm_fold(torch, ek, out):
+def k2_scale_inputs(torch, dt, seed=2):
+    """K2's full-size inputs, one tuple (x, ss, wg, bg, wf, bf) per scale
+    (h = 16/32/64 at HW = 307200 / 76800 / 19200)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    return [(rn(8, hw).to(dt), rn(h, hw).to(dt), rn(8, 8 * h) * 0.5,
+             rn(8 * h) * 0.1, rn(3 * h, h) / (3 * h) ** 0.5, rn(h) * 0.1)
+            for h, hw in K2_SCALES]
+
+
+def bf16_half_ulp(torch, v):
+    """Half a bf16 ulp at each value of v (float32): 2^(e - 8) for
+    |v| in [2^(e-1), 2^e)."""
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 9)
+
+
+def check_lstm_fold(torch, ek, out, defines=()):
     """K2 at the three full-size scales (h = 16/32/64 at HW = 307200 /
-    76800 / 19200), bf16 and f32. Tolerance: max |kernel - plain| <=
-    tol * max(1, max |plain|), tol = 1e-2 (bf16, one output rounding) or
-    1e-4 (f32; only the summation order and the transcendental functions
-    differ)."""
-    g = torch.Generator(device="cuda").manual_seed(2)
-    scales = [(16, H * W), (32, (H // 2) * (W // 2)), (64, (H // 4) * (W // 4))]
+    76800 / 19200), bf16 and f32, each scale against the plain version:
+    max |kernel - plain| <= tol * max(1, max |plain|), tol = 1e-2 (bf16:
+    bf16 operands and roundings of h and the output) or 1e-4 (f32; only
+    the summation order and the transcendental functions differ). bf16
+    also against the plain mirror of its roundings (`lstm_fold_bf16_ref`,
+    unrounded output): within half an output ulp plus 1e-3 of scale (the
+    SFU approximations, and the rare h that they send to the other bf16
+    neighbour). Each scale and the frame (three launches) timed with the
+    weights packed beforehand, as the VO runtime packs them once. Bound:
+    bytes, operations (bf16 tensor cores; f32 CUDA cores) or the SFU (4
+    transcendental functions a unit at 16 a clock an SM), the largest.
+    Times are device times (profiler): the wrapper's host cost per call
+    is of the kernel's order, so an event-timed loop of launches measures
+    the host (printed beside). `defines` picks a build variant."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dt, name, tol in ((torch.bfloat16, "bf16", 1e-2),
                           (torch.float32, "f32", 1e-4)):
-        args = []
-        for h, hw in scales:
-            rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
-            args.append((rn(8, hw).to(dt), rn(h, hw).to(dt),
-                         rn(8, 8 * h) * 0.5, rn(8 * h) * 0.1,
-                         rn(3 * h, h) / (3 * h) ** 0.5, rn(h) * 0.1))
-        err = 0.0
-        for a in args:
-            k = ek.lstm_fold_cuda(*a).float()
+        args = k2_scale_inputs(torch, dt)
+        packs = [ek.pack_fold_weights(*a[2:]) for a in args]
+        run = lambda a, w: ek.lstm_fold_cuda(*a, packed=w, defines=defines)
+        err = errm = 0.0
+        per = []
+        for (h, hw), a, w in zip(K2_SCALES, args, packs):
+            k = run(a, w).float()
             p = ek.lstm_fold_ref(*a).float()
             torch.cuda.synchronize()
             e = (k - p).abs().max().item()
             if not e <= tol * max(1.0, p.abs().max().item()):
-                fail(f"lstm_fold {name} h={a[1].shape[0]}: max err {e}")
+                fail(f"lstm_fold {name} h={h}: max err {e}")
             err = max(err, e)
-        ms = cuda_ms(lambda: [ek.lstm_fold_cuda(*a) for a in args])
+            if name == "bf16":
+                m = ek.lstm_fold_bf16_ref(*a)
+                em = ((k - m).abs() - bf16_half_ulp(torch, m)).max().item()
+                if not em <= 1e-3 * max(1.0, m.abs().max().item()):
+                    fail(f"lstm_fold bf16 h={h}: {em} beyond half an ulp "
+                         "of the bf16 mirror")
+                errm = max(errm, em)
+            per.append(device_ms(torch, lambda: run(a, w), "lstm_fold"))
+        # the three launches of a frame: device time, and the event-timed
+        # loop (which the host's issue cost per call can set)
+        ms = device_ms(torch, lambda: [run(a, w) for a, w in zip(args, packs)],
+                       "lstm_fold")
+        loop = cuda_ms(lambda: [run(a, w) for a, w in zip(args, packs)],
+                       reps=20)
         plain = cuda_ms(lambda: [ek.lstm_fold_ref(*a) for a in args], reps=3)
         es = torch.finfo(dt).bits // 8
-        nbytes = sum(hw * (8 + 2 * h) * es + 4 * (8 * 8 * h + 8 * h + 3 * h * h + h)
-                     for h, hw in scales)
-        flops = sum(hw * 2 * (8 * 6 * h + 3 * h * h) for h, hw in scales)
+        nbytes = sum(hw * (8 + 2 * h) * es + 4 * (8 * 8 * h + 8 * h
+                                                  + 3 * h * h + h)
+                     for h, hw in K2_SCALES)
+        flops = sum(hw * 2 * (8 * 6 * h + 3 * h * h) for h, hw in K2_SCALES)
+        sfu = sum(hw * 2 * h * 4 for h, hw in K2_SCALES)
         bms, by = bound_ms(nbytes, flops, name)
-        print(f"K2 lstm_fold_cm {name}: 3 scales/frame kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"max err {err:.3e}")
+        sfu_ms = sfu / (SFU_PER_CLK * sms * SM_CLOCK) * 1e3
+        if sfu_ms > bms:
+            bms, by = sfu_ms, "operations"
+        print(f"K2 lstm_fold_cm {name}: 3 scales/frame kernel {ms:.4f} ms "
+              f"of device time (h=16/32/64 {per[0]:.4f} / {per[1]:.4f} / "
+              f"{per[2]:.4f} ms; event-timed loop {loop:.4f} ms a frame), "
+              f"plain {plain:.4f} ms, bound {bms:.4f} ms "
+              f"({by}; bytes {nbytes / HBM_BPS * 1e3:.4f}, products "
+              f"{flops / PEAK[name] * 1e3:.4f}, SFU {sfu_ms:.4f}), max err "
+              f"{err:.3e}" + (f", beyond half an ulp of the bf16 mirror "
+                              f"{errm:.3e}" if name == "bf16" else ""))
         out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         max_abs_err=err)
+                         max_abs_err=err, scale_ms=per, loop_ms=loop)
 
 
 def check_lstm_carry_fold(torch, sk, out, defines=()):
@@ -412,9 +487,89 @@ K8_VARIANTS = (             # (label, -D defines of csrc/corr_train.cu)
 )
 
 
+K7_VARIANTS = (             # (label, -D defines of csrc/corr_train.cu)
+    ("4 edges/block, registers for 4 blocks/SM (shipped)", ()),
+    ("4 edges/block, registers for 5 blocks/SM", ("CORR_MIN_BLOCKS=5",)),
+    ("2 edges/block, 8 blocks/SM", ("CORR_WARPS=2", "CORR_MIN_BLOCKS=8")),
+    ("next tile's loads started before the mmas", ("CORR_PREFETCH=1",)),
+)
+
+K2_VARIANTS = (             # (label, -D defines of csrc/lstm_fold.cu)
+    ("4 warps/block, 4 blocks/SM, tanh.approx, two tile buffers (shipped)",
+     ()),
+    ("8 warps/block", ("K2_WARPS=8", "K2_MIN_BLOCKS=2")),
+    ("4 warps/block, registers for 8 blocks/SM", ("K2_MIN_BLOCKS=8",)),
+    ("accurate expf/tanhf in the bf16 path", ("K2_EXACT_TANH=1",)),
+    ("one tile buffer a warp (no copy under the work)", ("K2_ONE_BUFFER=1",)),
+)
+
+
 def ptxas_lines(log):
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]
+
+
+def ab_measure(torch):
+    """One side of `--ab`: K7's and K2's device times (profiler) in the
+    tree whose rampvo_tpu_torch is imported (each wrapper as that tree
+    defines it; K2 with its weights packed beforehand where the tree
+    packs them)."""
+    from rampvo_tpu_torch.ops import build
+    from rampvo_tpu_torch.ops import corr_train_kernels as ctk
+    from rampvo_tpu_torch.ops import encoder_kernels as ek
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all(["corr_train", "lstm_fold"])
+    res = {}
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for coords in ("patch", "spread3"):
+            a = synthetic_corr_train(torch, dt, coords=coords)[:6]
+            res[f"K7 {name} {coords}"] = device_ms(
+                torch, lambda: ctk.corr_train_cuda(*a), "corr_train_fwd")
+        per = []
+        for a in k2_scale_inputs(torch, dt):
+            kw = ({"packed": ek.pack_fold_weights(*a[2:])}
+                  if hasattr(ek, "pack_fold_weights") else {})
+            per.append(device_ms(torch, lambda: ek.lstm_fold_cuda(*a, **kw),
+                                 "lstm_fold"))
+        for (h, _), ms in zip(K2_SCALES, per):
+            res[f"K2 {name} h={h}"] = ms
+        res[f"K2 {name} frame"] = sum(per)
+    return res
+
+
+AB_SIDE = """
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+print("AB " + json.dumps(cs.ab_measure(torch)))
+"""
+
+
+def compare_ab(parent: str):
+    """`--ab DIR`: K7's and K2's device times in the tree at DIR (the
+    parent's, unpacked with git archive) and in this one, in one call on
+    one card,
+    in turns: parent, change, change, parent. Each side is a process of
+    its own, run from its tree (so it imports that tree's package and
+    builds that tree's sources) with `ab_measure` from this file."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for tree in (parent, here, here, parent):
+        res = subprocess.run([sys.executable, "-c", AB_SIDE,
+                              os.path.abspath(__file__)],
+                             cwd=os.path.abspath(tree), capture_output=True,
+                             text=True)
+        line = [ln for ln in res.stdout.splitlines() if ln.startswith("AB ")]
+        if res.returncode != 0 or not line:
+            fail(f"A/B side in {tree}: rc {res.returncode}\n{res.stderr[-3000:]}")
+        runs.append(json.loads(line[0][3:]))
+    print("A/B, device ms a launch (K2 frame: the three scales' sum) "
+          "(parent, change, change, parent):")
+    for key in runs[0]:
+        print(f"  {key:22s} " + "  ".join(f"{r[key]:.4f}" for r in runs))
 
 
 def compare_k1_variants(torch, ck, build):
@@ -442,6 +597,30 @@ def compare_k8_variants(torch, ctk, build):
               f"spread3 {ob['f32']['spread3_ms']:.4f} ms; bf16 "
               f"{ob['bf16']['ms']:.4f} / {ob['bf16']['spread3_ms']:.4f} ms; "
               f"ptxas {ptxas_lines(logs[('corr_train', d)])}")
+
+
+def compare_k7_variants(torch, ctk, build):
+    """`--k7-variants`: the same for K7 (K8 runs along: one source)."""
+    logs = build.build_all([("corr_train", d) for _, d in K7_VARIANTS])
+    for label, d in K7_VARIANTS:
+        of, ob = {}, {}
+        check_corr_train(torch, ctk, of, ob, defines=d)
+        print(f"K7 variant {label}: f32 patch {of['f32']['ms']:.4f} ms, "
+              f"spread3 {of['f32']['spread3_ms']:.4f} ms; bf16 "
+              f"{of['bf16']['ms']:.4f} / {of['bf16']['spread3_ms']:.4f} ms; "
+              f"ptxas {ptxas_lines(logs[('corr_train', d)])}")
+
+
+def compare_k2_variants(torch, ek, build):
+    """`--k2-variants`: the same for K2."""
+    logs = build.build_all([("lstm_fold", d) for _, d in K2_VARIANTS])
+    for label, d in K2_VARIANTS:
+        out = {}
+        check_lstm_fold(torch, ek, out, defines=d)
+        print(f"K2 variant {label}: bf16 {out['bf16']['ms']:.4f} ms a frame "
+              f"({' / '.join(f'{x:.4f}' for x in out['bf16']['scale_ms'])}"
+              f"), f32 {out['f32']['ms']:.4f} ms; ptxas "
+              f"{ptxas_lines(logs[('lstm_fold', d)])}")
 
 
 def check_corr_layouts(torch, ck, pk, bk, outs):
@@ -736,19 +915,49 @@ def adversarial_corr_train(torch, dt, seed=17, E=4096):
     return (gmap, f1, f2, coords, kk, jj), ct, rows
 
 
+def adversarial_corr_train_fwd(torch, dt, seed=19, E=4096):
+    """K7's adversarial inputs: `adversarial_coords` with NaN as well (the
+    forward's plain version puts NaN where the kernel does), gmap [64, 3,
+    3, 128], 4 frames, and kk or jj out of range (-1 or one past the end)
+    on two edges in 13, where the kernel writes zeros (the plain version
+    indexes with them). Returns (args, mask of the in-range edges)."""
+    from rampvo_tpu_torch.ops.corr import avg_pool2d
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+    h1, w1, NG, NF = H // 4, W // 4, 64, 4
+    gmap = rn(NG, 3, 3, 128).to(dt)
+    f1 = rn(NF, h1, w1, 128)
+    f2 = avg_pool2d(f1, 4).to(dt).contiguous()
+    f1 = f1.to(dt)
+    coords, _ = adversarial_coords(torch, E, w1, h1, g)
+    kk = torch.randint(0, NG, (E,), generator=g, device="cuda")
+    jj = torch.randint(0, NF, (E,), generator=g, device="cuda")
+    idx = torch.arange(E, device="cuda")
+    kk = torch.where(idx % 13 == 0, torch.where(idx % 2 == 0, -1, NG), kk)
+    jj = torch.where(idx % 13 == 6, torch.where(idx % 2 == 0, NF, -1), jj)
+    live = (kk >= 0) & (kk < NG) & (jj >= 0) & (jj < NF)
+    return (gmap, f1, f2, coords, kk, jj), live
+
+
 def check_corr_train(torch, ctk, out_f, out_b, defines=()):
     """K7 (forward) and K8 (backward) on the full-size training inputs,
     bf16 and f32, patch-shaped (the set the kernels line reports) and with
     the pixels spread +-3 px, each held against the plain version
-    (`corr_train_ref`, `corr_train_bwd_ref`) and timed; K8's slow-path
-    counter must stay 0 on the patch-shaped set. Then K8 on the
+    (`corr_train_ref`, `corr_train_bwd_ref`) and timed; K7's and K8's
+    slow-path counters must stay 0 on the patch-shaped set. Then K8 on the
     adversarial inputs (smaller E: spreads beyond the box cap, boxes
     crossing and outside each border, identical pixels, integer
     coordinates, 1e30 / inf coordinates) against the plain version
     and the plain box mirror; the gmap rows that only the inf patches
     read are left out (the plain backward puts NaN there) and must be
     finite in the kernel's gradient; the kernel's slow-path count must
-    equal the box mirror's (> 0). Tolerances: forward max |kernel - plain|
+    equal the box mirror's (> 0). Then K7 on its adversarial inputs (NaN
+    coordinates too, kk/jj out of range on some edges) against the plain
+    version on the in-range edges and against the plain box mirror
+    (`corr_train_box_ref`) on all: NaN at the same places, zero rows where
+    kk or jj is out of range, slow-path count equal to the mirror's (> 0).
+    Tolerances: forward max |kernel - plain|
     <= tol * max |plain|, tol = 1e-5 (f32: summation order) or 1e-2 (bf16:
     one output rounding); each of the three gradients within 1e-4 (f32:
     the atomic sums' order changes from run to run) or 2e-2 (bf16) of its
@@ -756,7 +965,8 @@ def check_corr_train(torch, ctk, out_f, out_b, defines=()):
     written once; K8's operations count the (edge, level) pairs whose
     output gradient this run keeps (the rest cost one pass over their ct
     row). The wrapper's three zero fills are part of K8's time; they are
-    timed alone once. `defines` picks a build variant of K8."""
+    timed alone once. `defines` picks a build variant of the library
+    (K7's CORR_* and K8's K8_* defines)."""
     slow = torch.zeros(1, dtype=torch.int32, device="cuda")
     bwd = lambda ct, *a: ctk.corr_train_bwd_cuda(ct, *a, slow=slow,
                                                  defines=defines)
@@ -767,7 +977,9 @@ def check_corr_train(torch, ctk, out_f, out_b, defines=()):
                 torch, dt, coords=coords)
             a = (gmap, f1, f2, co, kk, jj)
             E = co.shape[0]
-            k = ctk.corr_train_cuda(*a).float()
+            ctk.corr_train_slow_edges(defines=defines)
+            k = ctk.corr_train_cuda(*a, defines=defines).float()
+            slow7 = ctk.corr_train_slow_edges(defines=defines)
             p = ctk.corr_train_ref(*a)
             slow.zero_()
             kb = bwd(ct, *a)
@@ -787,10 +999,11 @@ def check_corr_train(torch, ctk, out_f, out_b, defines=()):
                     fail(f"corr_train bwd {name} {coords} grad {what}: max "
                          f"err {e} (scale {sc})")
                 errb = max(errb, e / sc)
-            if coords == "patch" and n_slow != 0:
-                fail(f"corr_train bwd {name}: {n_slow} patch-shaped edges "
-                     "took the slow path")
-            ms = cuda_ms(lambda: ctk.corr_train_cuda(*a), reps=20)
+            if coords == "patch" and (n_slow != 0 or slow7 != 0):
+                fail(f"corr_train {name}: {slow7} (fwd) and {n_slow} (bwd) "
+                     "patch-shaped edges took the slow path")
+            ms = cuda_ms(lambda: ctk.corr_train_cuda(*a, defines=defines),
+                         reps=20)
             plain = cuda_ms(lambda: ctk.corr_train_ref(*a), reps=2, warm=1)
             ms_b = cuda_ms(lambda: bwd(ct, *a), reps=20)
             plain_b = cuda_ms(lambda: ctk.corr_train_bwd_ref(ct, *a), reps=2,
@@ -807,9 +1020,18 @@ def check_corr_train(torch, ctk, out_f, out_b, defines=()):
             nbytes_b = E * 882 * 4 + maps * es + maps * 4 + small
             flops_b = kept * 9 * 64 * 128 * 4
             bms_b, by_b = bound_ms(nbytes_b, flops_b, name)
+            # what K7 reads through the caches: every tap of both boxes
+            taps = sum(float((b.bw * b.bh).sum()) for b in (
+                ctk.window_boxes(co[..., 0].reshape(E, 9) * sc,
+                                 co[..., 1].reshape(E, 9) * sc,
+                                 f.shape[1], f.shape[2])
+                for f, sc in ((f1, 1.0), (f2, 0.25))))
             print(f"K7 corr_train fwd {name} {coords} E={E}: kernel {ms:.4f} "
                   f"ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), max "
-                  f"err {err:.3e} (scale {scale:.3e})")
+                  f"err {err:.3e} (scale {scale:.3e}), slow-path edges "
+                  f"{slow7}; {taps / E:.1f} box taps per edge, "
+                  f"{taps * 128 * es / 1e9:.3f} GB of tap reads, "
+                  f"{taps * 128 * es / ms / 1e9:.3f} TB/s")
             print(f"K8 corr_train bwd {name} {coords} E={E}, {kept}/{2 * E} "
                   f"(edge, level) pairs kept: kernel {ms_b:.4f} ms (of which "
                   f"the wrapper's three zero fills {fill:.4f} ms), plain "
@@ -817,6 +1039,7 @@ def check_corr_train(torch, ctk, out_f, out_b, defines=()):
                   f"slow-path edges {n_slow}, max rel err {errb:.3e}")
             if coords == "spread3":
                 out_b[name]["spread3_ms"] = ms_b
+                out_f[name]["spread3_ms"] = ms
                 continue
             out_f[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
                                bound_by=by, max_abs_err=err)
@@ -852,6 +1075,31 @@ def check_corr_train(torch, ctk, out_f, out_b, defines=()):
         print(f"K8 corr_train bwd {name} adversarial E={ct.shape[0]}: max "
               f"rel err {max(errs):.3e}, slow-path edges {n_slow} (box "
               f"mirror {int(slow_ref.sum())})")
+        a, live = adversarial_corr_train_fwd(torch, dt)
+        ctk.corr_train_slow_edges(defines=defines)
+        k = ctk.corr_train_cuda(*a, defines=defines).float()
+        n_slow = ctk.corr_train_slow_edges(defines=defines)
+        pbox, slow_ref = ctk.corr_train_box_ref(*a)
+        p = ctk.corr_train_ref(*a[:3], *(x[live] for x in a[3:]))
+        torch.cuda.synchronize()
+        scale = torch.nan_to_num(p).abs().max().item()
+        err, errb = max_err_nan(k[live], p), max_err_nan(pbox[live], p)
+        n_nan = int(torch.isnan(p).sum())
+        if err is None or errb is None or not err <= tf * scale \
+                or not errb <= 1e-5 * scale or n_nan == 0 \
+                or bool((k[~live] != 0).any()) or bool(pbox[~live].any()):
+            fail(f"corr_train fwd {name} adversarial: max err {err}, box "
+                 f"mirror {errb} (scale {scale}), {n_nan} NaN outputs, "
+                 "or a row with kk/jj out of range not zero")
+        if n_slow == 0 or n_slow != int(slow_ref.sum()):
+            fail(f"corr_train fwd {name} adversarial: the kernel sent "
+                 f"{n_slow} edges down its slow path, the box mirror "
+                 f"{int(slow_ref.sum())}")
+        print(f"K7 corr_train fwd {name} adversarial E={k.shape[0]} "
+              f"({int((~live).sum())} rows with kk/jj out of range, zero): "
+              f"max err {err:.3e} (scale {scale:.3e}), plain box mirror vs "
+              f"plain {errb:.3e}, NaN outputs at the same {n_nan} places, "
+              f"slow-path edges {n_slow} (box mirror {int(slow_ref.sum())})")
 
 
 # ---------------------------------------------------------------------------
@@ -1362,6 +1610,10 @@ def run_train_main_path(torch, counters):
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  "
               f"{e.key[:90]}")
+    for e in dev:                  # K7 and K8 in the step, real coordinates
+        if "corr_train" in e.key:
+            print(f"  K7/K8 in the step: {e.self_device_time_total / 1e3:.3f}"
+                  f" ms {e.count}x {e.key[:60]}")
     return counts, s_step, peak, busy / s_prof
 
 
@@ -1377,6 +1629,13 @@ def main() -> int:
                     help="only compare the K1 build variants")
     ap.add_argument("--k8-variants", action="store_true",
                     help="only compare the K8 build variants")
+    ap.add_argument("--k7-variants", action="store_true",
+                    help="only compare the K7 build variants")
+    ap.add_argument("--k2-variants", action="store_true",
+                    help="only compare the K2 build variants")
+    ap.add_argument("--ab", metavar="DIR",
+                    help="only time K7 and K2 in the tree at DIR and in "
+                    "this one, in turns")
     args = ap.parse_args()
     try:
         import torch
@@ -1407,6 +1666,9 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda)
+    if args.ab:
+        compare_ab(args.ab)
+        return 0
     if args.k3_variants:
         compare_k3_variants(torch, sk, build)
         return 0
@@ -1414,13 +1676,18 @@ def main() -> int:
         build.build_all(["corr_lattice", "corr_lattice_cb"])
         compare_k6_splits(torch, ck)
         return 0
-    if args.k1_variants or args.k8_variants:
+    if args.k1_variants or args.k8_variants or args.k7_variants \
+            or args.k2_variants:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if args.k1_variants:
             compare_k1_variants(torch, ck, build)
         if args.k8_variants:
             compare_k8_variants(torch, ctk, build)
+        if args.k7_variants:
+            compare_k7_variants(torch, ctk, build)
+        if args.k2_variants:
+            compare_k2_variants(torch, ek, build)
         return 0
     t = time.perf_counter()
     logs = build.build_all(["corr_lattice", "lstm_fold", "lstm_carry_fold",

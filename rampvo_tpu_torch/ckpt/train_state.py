@@ -36,7 +36,9 @@ def latest_checkpoint(ckpt_dir: str):
 
 def restore_checkpoint(path: str) -> dict:
     """A checkpoint file, or the newest one of a checkpoint directory, as
-    {"params", "opt", "step"} on the CPU."""
+    {"params", "opt", "step"} on the CPU. A .pth file of another format
+    (a reference state_dict) comes back as it was saved; callers tell the
+    two apart by the "params" key."""
     if os.path.isdir(path):
         found = latest_checkpoint(path)
         if found is None:

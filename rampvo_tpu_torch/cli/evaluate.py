@@ -27,6 +27,7 @@ import traceback
 import numpy as np
 
 from .. import resolve_device
+from ..ckpt.train_state import restore_checkpoint
 from ..ckpt.weights import load_pth
 from ..data.loader import data_loader_all_events, device_prefetch
 from ..models.vonet import VONet
@@ -55,19 +56,25 @@ def load_intrinsics(K_path=None):
 
 
 def load_params(weights, input_mode: str) -> VONet:
-    """A `VONet` for `input_mode` from a reference .pth path, a loaded
-    checkpoint or state_dict, or a `VONet` (returned as it is)."""
+    """A `VONet` for `input_mode` from a `VONet` (returned as it is), a
+    path or a loaded dict. A path is a .pth file or a training checkpoint
+    directory (its newest step). The two .pth formats are told apart by
+    content: a training checkpoint ({"params", "opt", "step"}, written by
+    `cli.train`) gives its "params"; anything else is a reference
+    state_dict and goes through `load_pth`."""
     if isinstance(weights, VONet):
         if weights.input_mode != input_mode:
             raise ValueError(f"network is {weights.input_mode}, config "
                              f"{input_mode}")
         return weights
-    if isinstance(weights, dict) or (isinstance(weights, str)
-                                     and weights.endswith(".pth")):
-        net = VONet(input_mode)
-        net.load_state_dict(load_pth(weights, input_mode))
-        return net
-    raise ValueError(f"unsupported weights: {weights!r}")
+    if isinstance(weights, str):
+        weights = restore_checkpoint(weights)
+    if not isinstance(weights, dict):
+        raise ValueError(f"unsupported weights: {weights!r}")
+    net = VONet(input_mode)
+    net.load_state_dict(weights["params"] if "params" in weights
+                        else load_pth(weights, input_mode))
+    return net
 
 
 def run(config_VO: VOConfig, net: VONet, eval_cfg, data_list, seed: int = 0,

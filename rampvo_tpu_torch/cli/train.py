@@ -74,13 +74,15 @@ class TrainLoop:
         self.trainer = Trainer(self.net, train_cfg)
         self.step_count = 0
         if args.ckpt is not None:
-            if args.ckpt.endswith(".pth"):
-                self.net.load_state_dict(load_pth(args.ckpt, mode))
-            else:
-                restored = restore_checkpoint(args.ckpt)
+            # a training checkpoint (file or directory) resumes; a reference
+            # .pth (no "params" key) gives the weights only
+            restored = restore_checkpoint(args.ckpt)
+            if "params" in restored:
                 self.net.load_state_dict(restored["params"])
                 self.trainer.load_state_dict(restored["opt"])
                 self.step_count = int(restored["step"])
+            else:
+                self.net.load_state_dict(load_pth(restored, mode))
         self.batch_size = max(int(train_cfg.get("batch_size", 1)), 1)
         self.rng = np.random.RandomState(args.seed)
         self.gen = torch.Generator(device=self.device).manual_seed(

@@ -13,14 +13,23 @@
 // over 128 channels for the exact 8x8 window at (x0, y0) = floor(coords),
 // taps outside the map reading 0; then the 2x2 bilinear blend to 7x7,
 // written as out[e, ((q*7 + a)*7 + b)*2 + l] (a = x shift, b = y shift),
-// the reference layout corr_fc1 reads.
+// the reference layout corr_fc1 reads. An edge whose kk or jj is out of
+// range gets a row of zeros.
 //
-// K7 is K1's design (csrc/corr_lattice.cu, whose window code is copied
-// here) on a flat edge list: one warp per (edge, q); lane = dx * 4 + cg,
-// the 8 lanes dx covering one window row and the 4 lanes cg splitting the
-// channels; the patch feature stays in registers for both levels.
-// Bound: operations in f32 (18000 edges: 5.3 GFLOP against ~0.2 GB of
-// bytes), bytes in bf16.
+// K7 is K1's function on a flat edge list, so it runs K1's per-edge
+// routine (corr_window.cuh::edge with the RefStore policy): one warp per
+// edge; per level the union box of the 9 pixels' windows is read once and
+// dotted with all 9 pixels (bf16: mma.sync.m16n8k16, f32 accumulation;
+// f32: FMAs with the folding butterfly, no TF32); a level whose 9 floors
+// span more than CAP = 8 taps takes the exact per-pixel slow path, counted
+// in corrwin::slow_edges (read by corr_train_slow_edges). The coords are
+// [E, 9, 2] interleaved, read with a coordinate stride of 2. What bounded
+// the first design (one warp per (edge, pixel), each pixel re-reading its
+// own 8x8 window of tap rows, f32 FMAs with two shuffles per tap): cache
+// reads of 9 x 2 x 64 taps an edge. What bounds this one: the box taps'
+// reads from L2, as for K1. The bound the kernels line states is
+// operations in f32 (18000 edges: 5.3 GFLOP against ~0.2 GB of bytes) and
+// bytes in bf16.
 //
 // K8, gather form with one atomic pass per (edge, level). What bounded
 // the first design on the H100 (one warp per (edge, pixel), 32 float4
@@ -43,12 +52,13 @@
 // edges). ~box x 32 atomics per kept pair instead of 9 x 64 x 32. A level
 // whose 9 floors span more than CAP = 8 taps on an axis (nothing bounds
 // the spread) takes an exact slow path in the same kernel: 9 passes, pass
-// q with pixel q's own 8x8 window as the box. All arithmetic is f32 FMA
-// for f32 and bf16 inputs (no TF32); the atomics' order changes from run
-// to run. Bound: bytes (the ct rows, the maps and their gradients).
+// q with pixel q's own 8x8 window as the box; such edges are counted in
+// the caller's `slow` word. All arithmetic is f32 FMA for f32 and bf16
+// inputs (no TF32); the atomics' order changes from run to run. Bound:
+// bytes (the ct rows, the maps and their gradients). K8 keeps its own
+// constants below; K7's come from corr_window.cuh (namespace corrwin).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "corr_window.cuh"
 
 namespace {
 
@@ -57,35 +67,6 @@ constexpr int PP = 9;   // 3x3 patch pixels
 constexpr int D = 8;    // raw window (2R + 2, R = 3)
 constexpr int d = 7;    // blended window
 constexpr int NCOL = PP * d * d * 2;
-constexpr int WARPS = 8;
-constexpr unsigned FULL = 0xffffffffu;
-
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;  // channels per 16-byte load
-  __device__ static void load(const float* p, float* o) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  __device__ static void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x; o[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-};
 
 // float32 add of four consecutive values (16-byte aligned).
 __device__ __forceinline__ void atomic_add4(float* p, float a, float b,
@@ -104,104 +85,35 @@ __device__ __forceinline__ int floor_int(float v) {
   return (int)fminf(fmaxf(floorf(v), -1e6f), 1e6f);
 }
 
-// The patch feature's channels of lane group cg, as float32.
-template <typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ gp, int cg,
-                                         float (&g)[C / 4]) {
-  constexpr int N = Vec<T>::N;
-  constexpr int NCH = (C / 4) / N;
-#pragma unroll
-  for (int kc = 0; kc < NCH; ++kc) {
-    float t[N];
-    Vec<T>::load(gp + (kc * 4 + cg) * N, t);
-#pragma unroll
-    for (int i = 0; i < N; ++i) g[kc * N + i] = t[i];
-  }
-}
+// ---- K7 -------------------------------------------------------------------
 
-// The 8x8 raw window of one level for this lane's column dx: raw[dy]
-// (csrc/corr_lattice.cu).
+// One warp per edge e; coords [E, 9, 2] (x, y), kk into gmap [NG, 9, C],
+// jj into the maps [NF, H, W, C].
 template <typename T>
-__device__ __forceinline__ void window(const float (&g)[C / 4],
-                                       const T* __restrict__ fslot, int Hf,
-                                       int Wf, float xf, float yf, int dx,
-                                       int cg, float (&raw)[D]) {
-  constexpr int N = Vec<T>::N;
-  constexpr int NCH = (C / 4) / N;
-  const int xx = floor_int(xf) - 3 + dx;
-  const int y0 = floor_int(yf);
-  const bool xin = xx >= 0 && xx < Wf;
-#pragma unroll
-  for (int dy = 0; dy < D; ++dy) {
-    const int yy = y0 - 3 + dy;
-    float acc = 0.f;
-    if (xin && yy >= 0 && yy < Hf) {
-      const T* px = fslot + ((size_t)yy * Wf + xx) * C;
-#pragma unroll
-      for (int kc = 0; kc < NCH; ++kc) {
-        float f[N];
-        Vec<T>::load(px + (kc * 4 + cg) * N, f);
-#pragma unroll
-        for (int i = 0; i < N; ++i) acc = fmaf(g[kc * N + i], f[i], acc);
-      }
-    }
-    acc += __shfl_xor_sync(FULL, acc, 1);
-    acc += __shfl_xor_sync(FULL, acc, 2);
-    raw[dy] = acc;
-  }
-}
-
-__device__ __forceinline__ float blend(const float (&raw)[D],
-                                       const float (&rawn)[D], int b,
-                                       float fx, float fy) {
-  return (1.f - fy) * (1.f - fx) * raw[b] + (1.f - fy) * fx * rawn[b] +
-         fy * (1.f - fx) * raw[b + 1] + fy * fx * rawn[b + 1];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(corrwin::WARPS * 32, corrwin::MIN_BLOCKS)
 corr_train_fwd_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
                       const T* __restrict__ fmap2,
                       const float* __restrict__ coords,
                       const int* __restrict__ kk, const int* __restrict__ jj,
                       T* __restrict__ out, int E, int NG, int NF, int H1,
                       int W1, int H2, int W2) {
-  const int lane = threadIdx.x & 31;
-  const long item = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (item >= (long)E * PP) return;
-  const int e = (int)(item / PP), q = (int)(item % PP);
-  const int dx = lane >> 2, cg = lane & 3;
-  T* orow = out + (size_t)e * NCOL + q * (d * d * 2);
+  using Store = corrwin::RefStore;
+  __shared__ __align__(16) float raw[corrwin::WARPS][corrwin::RAW +
+                                                     Store::STAGE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * corrwin::WARPS + warp;
+  if (e >= E) return;
+  T* orow = out + (size_t)e * Store::NCOL;
   const int k = kk[e], j = jj[e];
   if (k < 0 || k >= NG || j < 0 || j >= NF) {  // no such row: zeros
-    if (dx < d) {
-      Vec<T>::store2(orow + (dx * d + cg) * 2, 0.f, 0.f);
-      if (cg + 4 < d) Vec<T>::store2(orow + (dx * d + cg + 4) * 2, 0.f, 0.f);
-    }
+    Store::template dead<T>(orow, lane);
     return;
   }
-  float g[C / 4];
-  load_row<T>(gmap + ((size_t)k * PP + q) * C, cg, g);
-  const float x1 = coords[((size_t)e * PP + q) * 2];
-  const float y1 = coords[((size_t)e * PP + q) * 2 + 1];
-  const float x2 = x1 * 0.25f, y2 = y1 * 0.25f;
-  float raw1[D], raw2[D], n1[D], n2[D];
-  window<T>(g, fmap1 + (size_t)j * H1 * W1 * C, H1, W1, x1, y1, dx, cg, raw1);
-  window<T>(g, fmap2 + (size_t)j * H2 * W2 * C, H2, W2, x2, y2, dx, cg, raw2);
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    n1[i] = __shfl_down_sync(FULL, raw1[i], 4);
-    n2[i] = __shfl_down_sync(FULL, raw2[i], 4);
-  }
-  if (dx >= d) return;
-  const float fx1 = x1 - floorf(x1), fy1 = y1 - floorf(y1);
-  const float fx2 = x2 - floorf(x2), fy2 = y2 - floorf(y2);
-#pragma unroll
-  for (int b = 0; b < d; ++b) {
-    if ((b & 3) != cg) continue;
-    Vec<T>::store2(orow + (dx * d + b) * 2, blend(raw1, n1, b, fx1, fy1),
-                   blend(raw2, n2, b, fx2, fy2));
-  }
+  const float* co = coords + (size_t)e * PP * 2;
+  corrwin::edge<T, Store>(gmap + (size_t)k * PP * C,
+                          fmap1 + (size_t)j * H1 * W1 * C,
+                          fmap2 + (size_t)j * H2 * W2 * C, H1, W1, H2, W2, co,
+                          co + 1, raw[warp], lane, orow, 2);
 }
 
 // ---- K8 -------------------------------------------------------------------
@@ -404,7 +316,7 @@ corr_train_bwd_kernel(const float* __restrict__ ct,
   }
 }
 
-int grid_of(int E) { return (int)(((long)E * PP + WARPS - 1) / WARPS); }
+int grid_of(int E) { return (E + corrwin::WARPS - 1) / corrwin::WARPS; }
 
 }  // namespace
 
@@ -424,12 +336,13 @@ extern "C" int corr_train_fwd_launch(const void* gmap, const void* fmap1,
   const int* j = static_cast<const int*>(jj);
   if (is_bf16) {
     using T = __nv_bfloat16;
-    corr_train_fwd_kernel<T><<<grid_of(E), WARPS * 32, 0, s>>>(
+    corr_train_fwd_kernel<T><<<grid_of(E), corrwin::WARPS * 32, 0, s>>>(
         static_cast<const T*>(gmap), static_cast<const T*>(fmap1),
         static_cast<const T*>(fmap2), co, k, j, static_cast<T*>(out), E, NG,
         NF, H1, W1, H2, W2);
   } else {
-    corr_train_fwd_kernel<float><<<grid_of(E), WARPS * 32, 0, s>>>(
+    corr_train_fwd_kernel<float><<<grid_of(E), corrwin::WARPS * 32, 0,
+                                    s>>>(
         static_cast<const float*>(gmap), static_cast<const float*>(fmap1),
         static_cast<const float*>(fmap2), co, k, j, static_cast<float*>(out),
         E, NG, NF, H1, W1, H2, W2);
@@ -472,4 +385,18 @@ extern "C" int corr_train_bwd_launch(const void* ct, const void* gmap,
         H1, W1, H2, W2);
   }
   return (int)cudaGetLastError();
+}
+
+// Reads into *count (host memory) how many edges of this library's K7
+// launches took the slow path since the last reset, after waiting for the
+// device; `reset` then sets the counter to 0. Returns the cudaError_t.
+// (K8 counts into the word its caller passes.)
+extern "C" int corr_train_slow_edges(unsigned int* count, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(count, corrwin::slow_edges,
+                                         sizeof(unsigned int));
+  if (err == cudaSuccess && reset) {
+    const unsigned int zero = 0;
+    err = cudaMemcpyToSymbol(corrwin::slow_edges, &zero, sizeof(zero));
+  }
+  return (int)err;
 }

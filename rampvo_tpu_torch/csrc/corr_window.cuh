@@ -1,5 +1,6 @@
-// Shared device code of the lattice correlation kernels (K1 corr_lattice,
-// K4 corr_bands, K5 corr_paired, K6 corr_lattice_cb): the per-edge routine.
+// Shared device code of the correlation kernels (K1 corr_lattice, K4
+// corr_bands, K5 corr_paired, K6 corr_lattice_cb, and the training
+// forward K7 in corr_train.cu): the per-edge routine.
 //
 // The function, per edge (patch features gp [9, 128], target maps f1, f2,
 // level-1 coords of the 9 patch pixels): the exact 8x8 raw windows
@@ -378,9 +379,11 @@ __device__ __forceinline__ void dots(const Feat<T>& ft,
 // ---------------------------------------------------------------------------
 
 // One warp, one edge: patch features gp [9, C] against the target slot's
-// maps f1 [H1, W1, C] and f2 [H2, W2, C] at the level-1 coords up, vp [9];
-// raw = the warp's RAW + S::STAGE floats of shared memory; the Store
-// policy writes the edge's row orow.
+// maps f1 [H1, W1, C] and f2 [H2, W2, C] at the level-1 coords of pixel q
+// up[q * cs], vp[q * cs] (cs = 1: planar u, v rows of the lattice; cs = 2:
+// interleaved (x, y) pairs of the training edge list); raw = the warp's
+// RAW + S::STAGE floats of shared memory; the Store policy writes the
+// edge's row orow.
 template <typename T, class S>
 __device__ __forceinline__ void edge(const T* __restrict__ gp,
                                      const T* __restrict__ f1,
@@ -389,9 +392,9 @@ __device__ __forceinline__ void edge(const T* __restrict__ gp,
                                      const float* __restrict__ up,
                                      const float* __restrict__ vp,
                                      float* __restrict__ raw, int lane,
-                                     T* __restrict__ orow) {
+                                     T* __restrict__ orow, int cs = 1) {
   const int qi = lane < PP ? lane : PP - 1;
-  const float x1 = up[qi], y1 = vp[qi];
+  const float x1 = up[qi * cs], y1 = vp[qi * cs];
   Feat<T> ft;
   ft.load(gp, lane);
   float* stage = raw + RAW;

@@ -21,8 +21,9 @@ The kernels read each edge's windows as one box per level (the union of
 its 9 pixels' 8x8 windows, csrc/corr_window.cuh). `window_boxes`,
 `box_passes`, `box_taps` and `corr_lattice_box_ref` mirror that index
 arithmetic (box origin, per-pixel offsets, the cap and its per-pixel slow
-path, borders) in plain PyTorch; the tests and chip_smoke.py hold them
-against `corr_lattice_ref`. No wrapper calls them.
+path, borders) in plain PyTorch (`box_corr` is the forward that K1 and the
+training forward K7 share); the tests and chip_smoke.py hold them against
+`corr_lattice_ref`. No wrapper calls them.
 """
 
 from __future__ import annotations
@@ -195,29 +196,21 @@ def window_pick(ox, oy, bw):
             + ox[..., None, None] + dd[None, :])
 
 
-def corr_lattice_box_ref(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int,
-                         cap: int = CAP, chunk: int = 1024):
-    """`corr_lattice_ref`'s function computed the way the kernels compute
-    it: per level, the dots of the 9 pixel features against the edge's
-    whole box, each pixel's 8x8 window picked out of the box by its
-    offset, then the blend. Returns (out [NC*M, 882] float32, edges that
-    did not fit at either level)."""
-    MEM, _, P, _, _ = gmap_r.shape
-    NC = cells.shape[0]
-    E = NC * M
-    dev = gmap_r.device
-    m = torch.arange(M, device=dev).repeat(NC)
-    slot = cells[:, 0].long().repeat_interleave(M)
-    live = slot >= 0
-    slot = slot.clamp(min=0)
-    g = gmap_r.reshape(MEM * M, P * P, C)[
-        cells[:, 1].long().repeat_interleave(M) * M + m].float()
-    x1, y1 = u.reshape(E, P * P).float(), v.reshape(E, P * P).float()
+def box_corr(g, fmap1, fmap2, slot, x1, y1, cap: int = CAP,
+             chunk: int = 1024):
+    """The kernels' forward box decomposition over E edges: per level, the
+    dots of the 9 pixel features against the edge's whole box, each
+    pixel's 8x8 window picked out of the box by its offset, then the
+    blend. g [E, 9, C] float32 patch features; slot [E] index into both
+    maps; x1, y1 [E, 9] level-1 coords. Returns (out [E, 882] float32 in
+    the reference layout, edges that did not fit at either level)."""
+    E = g.shape[0]
+    dev = g.device
     levels, slow = [], torch.zeros(E, dtype=torch.bool, device=dev)
-    for fmap, x, y in ((fmap1_r, x1, y1), (fmap2_r, x1 * 0.25, y1 * 0.25)):
+    for fmap, x, y in ((fmap1, x1, y1), (fmap2, x1 * 0.25, y1 * 0.25)):
         b = window_boxes(x, y, fmap.shape[1], fmap.shape[2], cap)
         slow |= ~b.fits
-        raw = torch.zeros((E, P * P, D, D), dtype=torch.float32, device=dev)
+        raw = torch.zeros((E, 9, D, D), dtype=torch.float32, device=dev)
         for idx, qs, bx, by, bw, bh, ox, oy, side in box_passes(b, cap):
             for s in range(0, idx.numel(), chunk):
                 c = slice(s, s + chunk)
@@ -235,8 +228,27 @@ def corr_lattice_box_ref(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int,
                + (1 - fy) * fx * raw[..., :d, 1:]
                + fy * (1 - fx) * raw[..., 1:, :d]
                + fy * fx * raw[..., 1:, 1:])
-        levels.append(out.transpose(-1, -2).reshape(E, P, P, d * d))
-    st = corr_stack(*levels)
+        levels.append(out.transpose(-1, -2).reshape(E, 3, 3, d * d))
+    return corr_stack(*levels), slow
+
+
+def corr_lattice_box_ref(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int,
+                         cap: int = CAP, chunk: int = 1024):
+    """`corr_lattice_ref`'s function computed the way the kernels compute
+    it (`box_corr`). Returns (out [NC*M, 882] float32, live edges that did
+    not fit at either level)."""
+    MEM, _, P, _, _ = gmap_r.shape
+    NC = cells.shape[0]
+    E = NC * M
+    dev = gmap_r.device
+    m = torch.arange(M, device=dev).repeat(NC)
+    slot = cells[:, 0].long().repeat_interleave(M)
+    live = slot >= 0
+    g = gmap_r.reshape(MEM * M, P * P, C)[
+        cells[:, 1].long().repeat_interleave(M) * M + m].float()
+    st, slow = box_corr(g, fmap1_r, fmap2_r, slot.clamp(min=0),
+                        u.reshape(E, P * P).float(),
+                        v.reshape(E, P * P).float(), cap, chunk)
     return torch.where(live[:, None], st, torch.zeros_like(st)), slow & live
 
 

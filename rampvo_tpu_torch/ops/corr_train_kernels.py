@@ -11,9 +11,11 @@ of frame jj[e]'s feature maps (level 1 at the coords, level 2 at coords /
 Its gradient reaches gmap and both feature maps; the coords get zero, as
 in the reference.
 
-`corr_train_bwd_box_ref` mirrors K8's box decomposition (gather form
-over each edge's window union, ops/corr_kernels.py::window_boxes) in plain
-PyTorch for the tests and chip_smoke.py; no wrapper calls it.
+K7 runs K1's per-edge routine (csrc/corr_window.cuh) on the flat edge
+list. `corr_train_box_ref` mirrors its box decomposition (K1's
+ops/corr_kernels.py::box_corr) and `corr_train_bwd_box_ref` K8's (gather
+form over each edge's window union, ops/corr_kernels.py::window_boxes),
+in plain PyTorch for the tests and chip_smoke.py; no wrapper calls them.
 
 `corr_train_fused` is one autograd Function on CUDA tensors (K7 going
 forward, K8 in the backward) and the plain version on CPU tensors; nothing
@@ -29,8 +31,8 @@ import torch
 
 from . import build
 from .corr import _unblend, corr_bwd_from_gv, corr_stack, corr_train
-from .corr_kernels import CAP, D, box_passes, box_taps, window_boxes, \
-    window_pick
+from .corr_kernels import CAP, D, box_corr, box_passes, box_taps, \
+    window_boxes, window_pick
 
 RADIUS = 3
 C = 128
@@ -45,6 +47,27 @@ def corr_train_ref(gmap, fmap1, fmap2, coords, kk, jj):
     c1 = corr_train(gmap, fmap1, coords, kk, jj, RADIUS)
     c2 = corr_train(gmap, fmap2, coords / 4.0, kk, jj, RADIUS)
     return corr_stack(c1, c2)
+
+
+def corr_train_box_ref(gmap, fmap1, fmap2, coords, kk, jj, cap: int = CAP,
+                       chunk: int = 1024):
+    """`corr_train_ref`'s function computed the way K7 computes it
+    (csrc/corr_train.cu on corr_window.cuh::edge, ops/corr_kernels.py::
+    box_corr): per level the 9 pixel features dotted with the edge's
+    whole box, each pixel's window picked out by its offset, then the
+    blend; an edge whose kk or jj is out of range gets zeros, as in the
+    kernel (the plain version indexes with them). Returns (out [E, 882]
+    float32, the in-range edges that did not fit at either level: those
+    the kernel counts on its slow path)."""
+    E = coords.shape[0]
+    NG, NF = gmap.shape[0], fmap1.shape[0]
+    kk, jj = kk.long(), jj.long()
+    live = (kk >= 0) & (kk < NG) & (jj >= 0) & (jj < NF)
+    g = gmap.reshape(NG, 9, C)[kk.clamp(0, NG - 1)].float()
+    co = coords.reshape(E, 9, 2).float()
+    st, slow = box_corr(g, fmap1, fmap2, jj.clamp(0, NF - 1), co[..., 0],
+                        co[..., 1], cap, chunk)
+    return torch.where(live[:, None], st, torch.zeros_like(st)), slow & live
 
 
 def corr_train_bwd_ref(ct, gmap, fmap1, fmap2, coords, kk, jj):
@@ -112,6 +135,7 @@ _SIG = {
     + [ctypes.c_void_p],
     "corr_train_bwd_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
+    "corr_train_slow_edges": [ctypes.POINTER(ctypes.c_uint), ctypes.c_int],
 }
 
 
@@ -143,13 +167,14 @@ def _checked(gmap, fmap1, fmap2, coords, kk, jj):
     return NG, NF, H1, W1, H2, W2, E, coords, kk, jj
 
 
-def corr_train_cuda(gmap, fmap1, fmap2, coords, kk, jj):
+def corr_train_cuda(gmap, fmap1, fmap2, coords, kk, jj, defines=()):
     """Launch K7 (same contract as `corr_train_ref`; the output has the
-    inputs' dtype)."""
+    inputs' dtype; an edge whose kk or jj is out of range gets zeros).
+    `defines` picks a build variant."""
     NG, NF, H1, W1, H2, W2, E, coords, kk, jj = _checked(
         gmap, fmap1, fmap2, coords, kk, jj)
     out = torch.empty((E, NCOL), dtype=gmap.dtype, device=gmap.device)
-    lib = build.load("corr_train", _SIG)
+    lib = build.load("corr_train", _SIG, defines)
     err = lib.corr_train_fwd_launch(
         gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(), coords.data_ptr(),
         kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, NG, NF, H1, W1, H2,
@@ -194,6 +219,17 @@ def corr_train_bwd_cuda(ct, gmap, fmap1, fmap2, coords, kk, jj, slow=None,
 
 corr_train_cuda.launches = 0
 corr_train_bwd_cuda.launches = 0
+
+
+def corr_train_slow_edges(reset: bool = True, defines=()) -> int:
+    """How many edges of K7's launches took the kernel's slow path (pixel
+    spread beyond CAP at either level) since the last reset; waits for
+    the device. K8 counts into the `slow` tensor its caller passes."""
+    lib = build.load("corr_train", _SIG, defines)
+    n = ctypes.c_uint(0)
+    build.check(lib.corr_train_slow_edges(ctypes.byref(n), int(reset)),
+                "corr_train_slow_edges")
+    return n.value
 
 
 class CorrTrainFused(torch.autograd.Function):

@@ -42,7 +42,7 @@ from ..ops.corr import avg_pool2d, corr, corr_stack
 from ..ops.corr_band_kernels import corr_lattice2_stacked
 from ..ops.corr_kernels import corr_lattice, corr_lattice_cb
 from ..ops.corr_paired_kernels import corr_lattice_paired
-from ..ops.encoder_kernels import multiscale_encode
+from ..ops.encoder_kernels import multiscale_encode, multiscale_weights
 from ..ops.singlescale_kernels import (
     singlescale_encode,
     singlescale_init_state,
@@ -491,9 +491,11 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
             return singlescale_encode(enc, events, images, enc_state, heads,
                                       packed)
     else:
+        packed = multiscale_weights(enc)
+
         def encode(events, images, mask, enc_state, heads):
             return multiscale_encode(enc, events, images, mask, enc_state,
-                                     heads)
+                                     heads, packed)
 
     @torch.no_grad()
     def encode_fn(events, images, mask, enc_state, heads=True):

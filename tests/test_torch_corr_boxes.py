@@ -1,9 +1,10 @@
 """The plain mirror of the correlation kernels' box decomposition
-(rampvo_tpu_torch/ops/corr_kernels.py::window_boxes, corr_lattice_box_ref;
-ops/corr_train_kernels.py::corr_train_bwd_box_ref) against the kernels'
-plain versions and against rampvo_tpu's exact correlation, on the CPU.
+(rampvo_tpu_torch/ops/corr_kernels.py::window_boxes, box_corr,
+corr_lattice_box_ref; ops/corr_train_kernels.py::corr_train_box_ref,
+corr_train_bwd_box_ref) against the kernels' plain versions and against
+rampvo_tpu's exact correlation, on the CPU.
 
-K1/K4/K5/K6 and K8 read each edge's windows as one box per level (the
+K1/K4/K5/K6, K7 and K8 read each edge's windows as one box per level (the
 union of its 9 pixels' 8x8 windows), dot or scatter over the whole box,
 and pick each pixel's window out of it by an offset; an edge whose pixels
 spread beyond the cap goes pixel by pixel. The mirrors do the same index
@@ -218,6 +219,63 @@ def test_corr_lattice_box_ref_vs_jax():
     np.testing.assert_allclose(got.numpy()[live], ref[live], atol=1e-4)
 
 
+@pytest.mark.parametrize("kind", CASES + ["out_of_range"])
+def test_corr_train_box_ref(kind):
+    """corr_train_box_ref == corr_train_ref on the rows whose kk and jj are
+    in range (1e-5 of scale; NaN outputs of non-finite coords at the same
+    places), exact zeros on the rows that are not (out_of_range: patch
+    coords with kk or jj -1 or one past the end on every fifth edge), and
+    the per-pixel path where the case sends it."""
+    _, gmap, f1, f2, co, kk, jj = train_problem(
+        "patch" if kind == "out_of_range" else kind, 9)
+    if kind == "out_of_range":
+        bad = np.arange(E) % 5 == 0
+        kk[bad] = np.array([-1, gmap.shape[0]])[np.arange(bad.sum()) % 2]
+        jj[bad[::-1]] = np.array([f1.shape[0], -1])[
+            np.arange(bad.sum()) % 2]
+    a = (t(gmap), t(f1), t(f2), t(co), t(kk), t(jj))
+    got, slow = ctk.corr_train_box_ref(*a)
+    live = ((kk >= 0) & (kk < gmap.shape[0]) & (jj >= 0)
+            & (jj < f1.shape[0]))
+    want = ctk.corr_train_ref(*(x[torch.from_numpy(live)] if x.dim() and
+                                x.shape[0] == E else x for x in a))
+    close_nan(got[torch.from_numpy(live)], want, 1e-5, kind)
+    assert not got[torch.from_numpy(~live)].any()
+    assert not slow[torch.from_numpy(~live)].any()
+    if kind == "out_of_range":
+        assert (~live).sum() > 0
+    if kind in ("wide", "nonfinite"):
+        assert slow.any() and not slow.all()
+    else:
+        assert not slow.any()
+
+
+@pytest.mark.parametrize("cap", [0, 5])
+def test_corr_train_box_ref_any_cap(cap):
+    """K7's mirror does not depend on the cap (cap 0: pixel by pixel)."""
+    _, gmap, f1, f2, co, kk, jj = train_problem("spread3", 10)
+    a = (t(gmap), t(f1), t(f2), t(co), t(kk), t(jj))
+    got, slow = ctk.corr_train_box_ref(*a, cap=cap)
+    assert slow.any()
+    close_nan(got, ctk.corr_train_ref(*a), 1e-5)
+
+
+def test_corr_train_box_ref_vs_jax():
+    """corr_train_box_ref == rampvo_tpu's corr_train at both levels
+    (stacked by corr_stack), patch-shaped and +-3 px cases, atol 1e-4 on
+    sums of 128 products of unit normals."""
+    for kind, seed in (("patch", 11), ("spread3", 12)):
+        _, gmap, f1, f2, co, kk, jj = train_problem(kind, seed)
+        k, j, c = jnp.asarray(kk), jnp.asarray(jj), jnp.asarray(co)
+        g = jnp.asarray(gmap)
+        ref = np.asarray(j_corr_stack(
+            j_corr_train(g, jnp.asarray(f1), c, k, j, 3),
+            j_corr_train(g, jnp.asarray(f2), c / 4.0, k, j, 3)))
+        got, _ = ctk.corr_train_box_ref(t(gmap), t(f1), t(f2), t(co), t(kk),
+                                        t(jj))
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, err_msg=kind)
+
+
 @pytest.mark.parametrize("kind", CASES)
 def test_corr_train_bwd_box_ref(kind):
     """corr_train_bwd_box_ref == corr_train_bwd_ref for all three
@@ -266,6 +324,18 @@ def test_corr_train_bwd_box_ref_vs_jax():
                                         t(kk), t(jj))
     for g, w_, name in zip(got, want, ("gmap", "fmap1", "fmap2")):
         close_nan(g, np.asarray(w_), 1e-4, name)
+
+
+def test_k7_wrapper_takes_cpu_tensors_to_plain_version():
+    """corr_train_fused on CPU tensors is the plain version (no build, no
+    launch); corr_train_cuda refuses CPU tensors."""
+    _, gmap, f1, f2, co, kk, jj = train_problem("patch", 13)
+    a = (t(gmap), t(f1), t(f2), t(co), t(kk), t(jj))
+    launches = ctk.corr_train_cuda.launches
+    assert torch.equal(ctk.corr_train_fused(*a), ctk.corr_train_ref(*a))
+    with pytest.raises(ValueError, match="CUDA"):
+        ctk.corr_train_cuda(*a)
+    assert ctk.corr_train_cuda.launches == launches
 
 
 def test_k8_wrapper_checks_slow_counter():

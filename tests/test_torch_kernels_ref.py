@@ -81,6 +81,100 @@ def test_lstm_fold_ref_vs_pallas(h, dtype):
     assert np.abs(a - b).max() <= tol
 
 
+def fold_problem(h, HW=300, seed=None):
+    """Seeded K2 inputs (x, ss, wg, bg, wf, bf) as numpy float32."""
+    rng = np.random.RandomState(h if seed is None else seed)
+    return (rng.randn(8, HW).astype(np.float32),
+            rng.randn(h, HW).astype(np.float32),
+            (0.5 * rng.randn(8, 8 * h)).astype(np.float32),
+            (0.1 * rng.randn(8 * h)).astype(np.float32),
+            (rng.randn(3 * h, h) / np.sqrt(3 * h)).astype(np.float32),
+            (0.1 * rng.randn(h)).astype(np.float32))
+
+
+@pytest.mark.parametrize("h", [16, 32, 64])
+def test_lstm_fold_bf16_ref(h):
+    """lstm_fold_bf16_ref (the bf16 kernel's roundings: bf16 weights, bf16
+    LSTM output before the fold, f32 sums) on bf16 inputs, rounded to bf16
+    as the kernel's output is: within 1e-2 of scale of lstm_fold_ref and
+    of the Pallas lstm_fold_cm(interpret=True) (a few bf16 roundings
+    apart), and within half an output ulp of its own unrounded result."""
+    x, ss, wg, bg, wf, bf = fold_problem(h)
+    xb, ssb = t(x).bfloat16(), t(ss).bfloat16()
+    w = (t(wg), t(bg), t(wf), t(bf))
+    got = ek.lstm_fold_bf16_ref(xb, ssb, *w)
+    assert got.dtype == torch.float32 and got.shape == (h, x.shape[1])
+    gotb = npy(got.bfloat16())
+    a = npy(j_lstm_fold_cm(jnp.asarray(x, jnp.bfloat16),
+                           jnp.asarray(ss, jnp.bfloat16), jnp.asarray(wg),
+                           jnp.asarray(bg), jnp.asarray(wf), jnp.asarray(bf),
+                           hwb=256, interpret=True))
+    b = npy(ek.lstm_fold_ref(xb, ssb, *w))
+    for want in (a, b):
+        assert np.abs(gotb - want).max() <= 1e-2 * max(1.0, np.abs(want).max())
+    assert np.abs(gotb - npy(got)).max() <= 2.0 ** -8 * np.abs(npy(got)).max()
+
+
+@pytest.mark.parametrize("h", [16, 32, 64])
+def test_pack_fold_weights(h):
+    """pack_fold_weights puts each weight where csrc/lstm_fold.cu reads
+    it: lane l = 4g + t of gate chunk c, gate G (i, g, o) holds
+    wg[2t + i, off_G + 8c + g] (i = 0, 1); lane l of fold k-step ks,
+    n-tile nt holds wf[16 ks + 2t + i + 8 j, 8 nt + g] (j, i = 0, 1); the
+    biases follow the same chunks. Weights in bf16, biases exact."""
+    _, _, wg, bg, wf, bf = fold_problem(h, seed=h + 1)
+    fw = ek.pack_fold_weights(t(wg), t(bg), t(wf), t(bf))
+    assert fw.frag.dtype == torch.bfloat16 and fw.bias.dtype == torch.float32
+    frag = fw.frag.float().numpy()
+    nch, ks, nt = 2 * h // 8, 3 * h // 16, h // 8
+    lane = np.arange(32)
+    g, tt = lane // 4, lane % 4
+    rb = lambda a: t(a).bfloat16().float().numpy()
+    gate = frag[:48 * h].reshape(nch, 3, 32, 2)
+    want = np.empty_like(gate)
+    for c in range(nch):
+        for G, off in enumerate((0, 4 * h, 6 * h)):
+            for i in range(2):
+                want[c, G, :, i] = rb(wg)[2 * tt + i, off + 8 * c + g]
+    np.testing.assert_array_equal(gate, want)
+    fold = frag[48 * h:].reshape(ks, nt, 32, 4)
+    want = np.empty_like(fold)
+    for k in range(ks):
+        for n in range(nt):
+            for j in range(4):
+                want[k, n, :, j] = rb(wf)[16 * k + 2 * tt + j % 2 + 8 * (j // 2),
+                                          8 * n + g]
+    np.testing.assert_array_equal(fold, want)
+    bias = fw.bias.numpy()
+    gb = bias[:24 * nch].reshape(nch, 3, 8)
+    for c in range(nch):
+        for G, off in enumerate((0, 4 * h, 6 * h)):
+            np.testing.assert_array_equal(gb[c, G], bg[off + 8 * c:off + 8 * c + 8])
+    np.testing.assert_array_equal(bias[24 * nch:], bf)
+
+
+def test_multiscale_weights_packed_once():
+    """multiscale_encode with the weights packed once per network
+    (multiscale_weights: 3 scales x both mask values) gives exactly what
+    it gives composing them per call, for both mask values."""
+    net = VONet().eval()
+    enc = net.patchify.encoder
+    packed = ek.multiscale_weights(enc)
+    assert len(packed) == 3 and all(set(p) == {False, True} for p in packed)
+    H, W = 32, 48
+    rng = np.random.RandomState(3)
+    s0 = s1 = multiscale_init_state(H, W)
+    with torch.no_grad():
+        for m in (True, False):
+            ev = t(rng.rand(1, H, W, 5).astype(np.float32))
+            im = t(rng.rand(1, H, W, 3).astype(np.float32))
+            f0, i0, s0 = ek.multiscale_encode(enc, ev, im, np.array([m]), s0)
+            f1, i1, s1 = ek.multiscale_encode(enc, ev, im, np.array([m]), s1,
+                                              packed=packed)
+            assert torch.equal(f0, f1) and torch.equal(i0, i1)
+            assert all(torch.equal(a, b) for a, b in zip(s0["ss"], s1["ss"]))
+
+
 def test_encoder_chain_vs_flax():
     """multiscale_encode (composed weights + lstm_fold_cm, whose CPU path is
     the plain version) == VONet.encode over 2 carried frames, the second
