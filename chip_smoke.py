@@ -8,20 +8,23 @@
     python3 chip_smoke.py --k8-variants    # only K8's build variants, timed
     python3 chip_smoke.py --k7-variants    # only K7's build variants, timed
     python3 chip_smoke.py --k2-variants    # only K2's build variants, timed
-    python3 chip_smoke.py --ab DIR         # K7 and K2 here and in the tree
-                                           # at DIR, in turns
+    python3 chip_smoke.py --ab DIR         # K7, K2, K3 and the folded
+                                           # correlation here and in the
+                                           # tree at DIR, in turns
 
 Phases: (1) print the card, build the kernels from csrc/ (one nvcc each,
 all started together); (2) hold each kernel (K1 corr_lattice, K2
-lstm_fold_cm, K3 lstm_carry_fold_cm, K4 corr_bands, K5 corr_paired, K6
-corr_lattice_cb, K7/K8 the training correlation's forward and backward)
-against its plain PyTorch version at the main paths' full-size shapes and
-time both (K1 and K7/K8 on two coordinate sets, pixels spread +-3 px and
-patch-shaped, and on a smaller adversarial set that drives the kernels'
-slow path, borders and non-finite coordinates; K2 scale by scale, in bf16
-also against the plain mirror of its roundings); hold K4-K6 against K1
-(K6 and K5 bit for bit, K4 with its
-folded finish within two bf16 roundings); run the probes P1 (dynlane) and
+lstm_fold_cm, K3 lstm_carry_fold_cm, K4 corr_bands and corr_folded, K5
+corr_paired, K6 corr_lattice_cb, K7/K8 the training correlation's forward
+and backward) against its plain PyTorch version at the main paths'
+full-size shapes and time both (K1 and K7/K8 on two coordinate sets,
+pixels spread +-3 px and patch-shaped, and on a smaller adversarial set
+that drives the kernels' slow path, borders and non-finite coordinates;
+K2 scale by scale and K3 in each presence case, in bf16 also against the
+plain mirrors of their roundings); hold K4-K6 against K1 (K6, K5 and K4's
+folded kernel bit for bit, the folded kernel on all three coordinate
+sets; K4's band with the PyTorch finish within two bf16 roundings); run
+the probes P1 (dynlane) and
 P2 (grid_probe, three variants and a host-clock launch loop) against their
 plain versions; (3) check small VO runs and small trainings on the card
 against the same runs on the CPU (plain versions), MultiScale and
@@ -32,7 +35,8 @@ just before and read just after: RampVO at 480x640, 96 patches, bf16, for
 40 frames plus events-only frames, then final_refinement and terminate,
 and a profile of four more frames -- MultiScale, SingleScale, then
 MultiScale under CORR_LAYOUT fused2, fused4 and folded (each layout's
-kernel launches once per update, the other correlation kernels never) --
+kernel launches once per update, the other correlation kernels never;
+the folded path runs no PyTorch finish on the card) --
 and a shorter MultiScale pass with the default keyframe threshold so the
 eviction remap runs; (5) the evaluation CLI's run -> evaluate_sequence
 -> score -> save_stamped_trajectories in both input modes on an
@@ -201,72 +205,120 @@ def check_lstm_fold(torch, ek, out, defines=()):
                          max_abs_err=err, scale_ms=per, loop_ms=loop)
 
 
-def check_lstm_carry_fold(torch, sk, out, defines=()):
-    """K3 at the full-size SingleScale shapes (hp = 16, HW = 480 * 640),
-    bf16 and f32, presence (1, 1), (1, 0) and (0, 1). Tolerance: max
-    |kernel - plain| <= tol * max(1, max |plain|) over both outputs, tol =
-    1e-2 (bf16, one output rounding) or 1e-4 (f32; only the summation
-    order and the transcendental functions differ). Timed with both
-    modalities present (the main path's case). `defines` picks a build
-    variant of the kernel."""
-    g = torch.Generator(device="cuda").manual_seed(4)
+def k3_inputs(torch, dt, seed=4):
+    """K3's full-size inputs (x, hc, ss, wg, wh, bg, wf, bf) at hp = 16,
+    HW = 480 * 640: dense random weights (the kernel takes any)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     hp, hw = 16, H * W
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    return (rn(8, hw).to(dt), rn(4 * hp, hw).to(dt), rn(hp, hw).to(dt),
+            rn(8, 8 * hp) * 0.5, rn(2 * hp, 8 * hp) / (2 * hp) ** 0.5,
+            rn(8 * hp) * 0.1, rn(2 * hp, hp) / (2 * hp) ** 0.5,
+            rn(hp) * 0.1)
+
+
+def check_lstm_carry_fold(torch, sk, out, defines=()):
+    """K3 at the full-size SingleScale shapes (hp = 16, HW = 480 * 640),
+    bf16 and f32, presence (1, 1), (1, 0) and (0, 1), weights packed
+    beforehand as the VO runtime packs them once. Against the plain
+    version: max |kernel - plain| <= tol * max(1, max |plain|) over both
+    outputs, tol = 1e-2 (bf16: bf16 operands and roundings of h', ss1 and
+    the outputs) or 1e-4 (f32; only the summation order and the
+    transcendental functions differ). bf16 also against the plain mirror
+    of its roundings (`lstm_carry_fold_bf16_ref`, unrounded outputs),
+    stage by stage: the mirror's folds take the kernel's own bf16 h' (its
+    output) and, with both folds, its own bf16 ss1 (the (1, 0) case's
+    output), so that a bf16 intermediate the SFU approximations sent to
+    the other neighbour, which the folds' weights carry on, does not hide
+    behind a looser bound; then within half an output ulp plus 1e-3 of
+    scale (K2's rule). The free-running mirror's distance is printed
+    beside. Timed with both modalities present (the main path's
+    case) by device time (profiler): the wrapper's host cost per call is
+    of the kernel's order, so an event-timed loop (printed beside)
+    measures the host. Bound: bytes, operations (bf16 tensor cores; f32
+    CUDA cores) or the SFU (5 transcendental functions a unit at 16 a
+    clock an SM), the largest. `defines` picks a build variant."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hp, hw = 16, H * W
     for dt, name, tol in ((torch.bfloat16, "bf16", 1e-2),
                           (torch.float32, "f32", 1e-4)):
-        base = (rn(8, hw).to(dt), rn(4 * hp, hw).to(dt), rn(hp, hw).to(dt),
-                rn(8, 8 * hp) * 0.5, rn(2 * hp, 8 * hp) / (2 * hp) ** 0.5,
-                rn(8 * hp) * 0.1, rn(2 * hp, hp) / (2 * hp) ** 0.5,
-                rn(hp) * 0.1)
-        err = 0.0
-        for pres in ((1, 1), (1, 0), (0, 1)):
+        base = k3_inputs(torch, dt, seed=4 if name == "bf16" else 5)
+        w = sk.pack_carry_fold_weights(*base[3:])
+        run = lambda a: sk.lstm_carry_fold_cuda(*a, packed=w, defines=defines)
+        err = errm = errf = 0.0
+        beyond = lambda k, m: ((k - m).abs() - bf16_half_ulp(torch, m)).max(
+        ).item()
+        ss1 = None
+        for pres in ((1, 0), (1, 1), (0, 1)):
             a = (*base, torch.tensor(pres, dtype=torch.int32, device="cuda"))
-            k = sk.lstm_carry_fold_cuda(*a, defines=defines)
+            k = run(a)
             p = sk.lstm_carry_fold_ref(*a)
-            torch.cuda.synchronize()
             for kk, pp in zip(k, p):
                 kk, pp = kk.float(), pp.float()
                 e = (kk - pp).abs().max().item()
                 if not e <= tol * max(1.0, pp.abs().max().item()):
                     fail(f"lstm_carry_fold {name} pres={pres}: max err {e}")
                 err = max(err, e)
+            if name != "bf16":
+                continue
+            m = sk.lstm_carry_fold_bf16_ref(
+                *a, h=k[1][:2 * hp], ss1=ss1 if pres == (1, 1) else None)
+            for kk, mm in zip(k, m):
+                em = beyond(kk.float(), mm)
+                if not em <= 1e-3 * max(1.0, mm.abs().max().item()):
+                    fail(f"lstm_carry_fold bf16 pres={pres}: {em} beyond "
+                         "half an ulp of the bf16 mirror")
+                errm = max(errm, em)
+            errf = max(errf, *(beyond(kk.float(), mm) for kk, mm in zip(
+                k, sk.lstm_carry_fold_bf16_ref(*a))))
+            if pres == (1, 0):
+                ss1 = k[0]
         a = (*base, torch.ones(2, dtype=torch.int32, device="cuda"))
-        ms = cuda_ms(lambda: sk.lstm_carry_fold_cuda(*a, defines=defines),
-                     reps=20)
+        ms = device_ms(torch, lambda: run(a), "lstm_carry_fold")
+        loop = cuda_ms(lambda: run(a), reps=20)
         plain = cuda_ms(lambda: sk.lstm_carry_fold_ref(*a), reps=3)
         es = torch.finfo(dt).bits // 8
-        nbytes = (hw * (8 + 5 * hp) * es + hw * 5 * hp * es
-                  + 4 * (8 * 8 * hp + 2 * hp * 8 * hp + 8 * hp
-                         + 2 * hp * hp + hp) + 8)
+        wbytes = (w.frag.numel() * 2 + w.bias.numel() * 4 if name == "bf16"
+                  else 4 * sum(t.numel() for t in w[:5]))
+        nbytes = hw * (8 + 5 * hp) * es + hw * 5 * hp * es + wbytes + 8
         flops = hw * (2 * (8 + 2 * hp) * 8 * hp + 2 * 2 * 2 * hp * hp)
+        sfu_ms = hw * 2 * hp * 5 / (SFU_PER_CLK * sms * SM_CLOCK) * 1e3
         bms, by = bound_ms(nbytes, flops, name)
-        print(f"K3 lstm_carry_fold_cm {name}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), max err {err:.3e}")
+        if sfu_ms > bms:
+            bms, by = sfu_ms, "operations"
+        print(f"K3 lstm_carry_fold_cm {name}: kernel {ms:.4f} ms of device "
+              f"time (event-timed loop {loop:.4f} ms a launch), plain "
+              f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; bytes "
+              f"{nbytes / HBM_BPS * 1e3:.4f}, products "
+              f"{flops / PEAK[name] * 1e3:.4f}, SFU {sfu_ms:.4f}), max err "
+              f"{err:.3e}" + (f", beyond half an ulp of the bf16 mirror "
+                              f"{errm:.3e} stage by stage, {errf:.3e} "
+                              "free-running" if name == "bf16" else ""))
         out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         max_abs_err=err)
+                         max_abs_err=err, loop_ms=loop)
 
 
 K3_VARIANTS = (             # (label, -D defines of csrc/lstm_carry_fold.cu)
-    ("2 blocks/SM, rolled fold start (shipped)", ()),
-    ("1 block/SM, rolled", ("K3_MIN_BLOCKS=1",)),
-    ("3 blocks/SM, rolled", ("K3_MIN_BLOCKS=3",)),
-    ("2 blocks/SM, unrolled fold start", ("K3_FOLD_UNROLL=16",)),
-    ("1 block/SM, unrolled", ("K3_MIN_BLOCKS=1", "K3_FOLD_UNROLL=16")),
+    ("4 warps/block, 32-pixel tiles, 3 blocks/SM, tanh.approx, two tile "
+     "buffers (shipped)", ()),
+    ("8 warps/block", ("K3_WARPS=8", "K3_MIN_BLOCKS=1")),
+    ("16-pixel tiles, 4 blocks/SM", ("K3_MT=1", "K3_MIN_BLOCKS=4")),
+    ("accurate expf/tanhf in the bf16 path", ("K3_EXACT_TANH=1",)),
+    ("one tile buffer a warp (no copy under the work)", ("K3_ONE_BUFFER=1",)),
 )
 
 
 def compare_k3_variants(torch, sk, build):
     """`--k3-variants`: build the K3 variants in parallel, print each one's
-    registers and spills, and hold each against the plain version and
+    registers and spills, and hold each against the plain versions and
     time it as the K3 check does, in one process."""
     logs = build.build_all([("lstm_carry_fold", d) for _, d in K3_VARIANTS])
     for label, d in K3_VARIANTS:
-        regs = [ln.strip() for ln in logs[("lstm_carry_fold", d)].splitlines()
-                if "registers" in ln or "spill" in ln]
         out = {}
         check_lstm_carry_fold(torch, sk, out, defines=d)
         print(f"K3 variant {label}: bf16 {out['bf16']['ms']:.4f} ms, f32 "
-              f"{out['f32']['ms']:.4f} ms; ptxas {regs}")
+              f"{out['f32']['ms']:.4f} ms (device time); ptxas "
+              f"{ptxas_lines(logs[('lstm_carry_fold', d)])}")
 
 
 def patch_grid(torch):
@@ -510,17 +562,23 @@ def ptxas_lines(log):
 
 
 def ab_measure(torch):
-    """One side of `--ab`: K7's and K2's device times (profiler) in the
-    tree whose rampvo_tpu_torch is imported (each wrapper as that tree
-    defines it; K2 with its weights packed beforehand where the tree
-    packs them)."""
+    """One side of `--ab`: device times (profiler) in the tree whose
+    rampvo_tpu_torch is imported, each through the wrapper as that tree
+    defines it: K7, K2 and K3 (K2 and K3 with their weights packed
+    beforehand where the tree packs them), and the folded layout's
+    correlation `corr_lattice2_stacked(folded=True)` on the synthetic
+    lattice (every kernel of the call: the band kernel and its PyTorch
+    finish, or the folded kernel)."""
     from rampvo_tpu_torch.ops import build
+    from rampvo_tpu_torch.ops import corr_band_kernels as bk
     from rampvo_tpu_torch.ops import corr_train_kernels as ctk
     from rampvo_tpu_torch.ops import encoder_kernels as ek
+    from rampvo_tpu_torch.ops import singlescale_kernels as sk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build.build_all(["corr_train", "lstm_fold"])
+    build.build_all(["corr_train", "lstm_fold", "lstm_carry_fold",
+                     "corr_bands"])
     res = {}
     for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for coords in ("patch", "spread3"):
@@ -536,6 +594,16 @@ def ab_measure(torch):
         for (h, _), ms in zip(K2_SCALES, per):
             res[f"K2 {name} h={h}"] = ms
         res[f"K2 {name} frame"] = sum(per)
+        a = (*k3_inputs(torch, dt),
+             torch.ones(2, dtype=torch.int32, device="cuda"))
+        kw = ({"packed": sk.pack_carry_fold_weights(*a[3:8])}
+              if hasattr(sk, "pack_carry_fold_weights") else {})
+        res[f"K3 {name}"] = device_ms(
+            torch, lambda: sk.lstm_carry_fold_cuda(*a, **kw),
+            "lstm_carry_fold")
+        s = synthetic_lattice(torch, dt)
+        res[f"folded corr {name}"] = device_ms(
+            torch, lambda: bk.corr_lattice2_stacked(*s, folded=True), "")
     return res
 
 
@@ -549,10 +617,9 @@ print("AB " + json.dumps(cs.ab_measure(torch)))
 
 
 def compare_ab(parent: str):
-    """`--ab DIR`: K7's and K2's device times in the tree at DIR (the
+    """`--ab DIR`: the device times of `ab_measure` in the tree at DIR (the
     parent's, unpacked with git archive) and in this one, in one call on
-    one card,
-    in turns: parent, change, change, parent. Each side is a process of
+    one card, in turns: parent, change, change, parent. Each side is a process of
     its own, run from its tree (so it imports that tree's package and
     builds that tree's sources) with `ab_measure` from this file."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -566,8 +633,9 @@ def compare_ab(parent: str):
         if res.returncode != 0 or not line:
             fail(f"A/B side in {tree}: rc {res.returncode}\n{res.stderr[-3000:]}")
         runs.append(json.loads(line[0][3:]))
-    print("A/B, device ms a launch (K2 frame: the three scales' sum) "
-          "(parent, change, change, parent):")
+    print("A/B, device ms a launch (K2 frame: the three scales' sum; "
+          "folded corr: every kernel of the call) (parent, change, change, "
+          "parent):")
     for key in runs[0]:
         print(f"  {key:22s} " + "  ".join(f"{r[key]:.4f}" for r in runs))
 
@@ -623,6 +691,54 @@ def compare_k2_variants(torch, ek, build):
               f"{ptxas_lines(logs[('lstm_fold', d)])}")
 
 
+def bit_equal(torch, a, b) -> bool:
+    """a and b hold the same bits (NaN payloads included)."""
+    it = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(it), b.view(it))
+
+
+def lattice_args(torch, ck, coords):
+    """K1's arguments (gmap, f1, f2, u, v, cells, M) on the synthetic
+    lattice (`coords` "spread3" or "patch") or the adversarial one, for
+    both dtypes: {dtype name: args}."""
+    res = {}
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        if coords == "adversarial":
+            res[name] = adversarial_lattice(torch, dt)
+            continue
+        (gmap, f1, f2, u, v, cv, n, slotmap, r,
+         (NI, T, Mm)) = synthetic_lattice(torch, dt, coords=coords)
+        cells = ck.cell_tables(NI, T, r, n, cv, slotmap, gmap.shape[0])
+        res[name] = (gmap, f1, f2, u, v, cells, Mm)
+    return res
+
+
+def check_folded(torch, ck, bk):
+    """K4's folded kernel == K1 through folded_corr_perm bit for bit, in
+    bf16 and f32, on the +-3 px, patch-shaped and adversarial lattices
+    (NaN outputs included), dead cells zero."""
+    from rampvo_tpu_torch.ops.corr_perms import folded_corr_perm
+
+    finv = torch.tensor(folded_corr_perm(3, 3), dtype=torch.long,
+                        device="cuda")
+    for coords in ("spread3", "patch", "adversarial"):
+        for name, a in lattice_args(torch, ck, coords).items():
+            k1 = ck.corr_lattice_cuda(*a)
+            kf = bk.corr_folded_cuda(*a)
+            dead = (a[5][:, 0] < 0).repeat_interleave(a[6])
+            torch.cuda.synchronize()
+            if not bit_equal(torch, kf, k1[:, finv]):
+                fail(f"K4 folded kernel {name} {coords}: differs from K1 "
+                     "through folded_corr_perm")
+            if not bool(dead.any()) or bool((kf[dead] != 0).any()):
+                fail(f"K4 folded kernel {name} {coords}: a dead cell is not "
+                     "zero (or none is dead)")
+    print("K4 folded kernel == K1 through folded_corr_perm bit for bit, bf16 "
+          "and f32, on the +-3 px, patch-shaped and adversarial lattices; "
+          "dead cells zero")
+
+
 def check_corr_layouts(torch, ck, pk, bk, outs):
     """K4, K5 and K6 on the synthetic full-size lattice, bf16 and f32, each
     against its plain version (tolerance as K1's: tol * max |plain|, tol =
@@ -633,9 +749,14 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
     pixel zero; K4 with its folded finish, mapped back through
     folded_corr_perm, within 2e-2 of K1's scale in bf16 (two roundings:
     the bands and the output) and 1e-5 in f32 (the blend in PyTorch's
-    order). Dead cells zero in every output. Times each kernel, K4's
-    finish, and the plain versions; `outs` gets {"K4"|"K5"|"K6"|"K4
-    finish": {dtype: numbers}}."""
+    order). Dead cells zero in every output. K4's folded kernel (what the
+    folded layout runs on the card): bit-equal to K1 through
+    folded_corr_perm (`check_folded`, all three coordinate sets), within
+    tol of its plain version, and within the finish's tolerance above of
+    the band + finish. Times each kernel, K4's finish, the folded kernel
+    (beside the band kernel, the band + finish and its bound) and the
+    plain versions; `outs` gets {"K4"|"K5"|"K6"|"K4 finish"|"K4 folded":
+    {dtype: numbers}}."""
     from rampvo_tpu_torch.ops.corr_perms import folded_corr_perm, \
         paired_corr_perm
 
@@ -643,6 +764,7 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
                         device="cuda")
     finv = torch.tensor(folded_corr_perm(3, 3), dtype=torch.long,
                         device="cuda")
+    check_folded(torch, ck, bk)
     for dt, name, tol in ((torch.bfloat16, "bf16", 1e-2),
                           (torch.float32, "f32", 1e-5)):
         (gmap, f1, f2, u, v, cv, n, slotmap, r,
@@ -665,6 +787,8 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
             NI, T, Mm).reshape(-1)
         fol = bk.stack_levels(*bk.finish_bands(k4, u, v, vmask),
                               folded=True).to(dt)
+        kf = bk.corr_folded_cuda(*a)
+        pf = bk.corr_folded_ref(*a)
         torch.cuda.synchronize()
         live = (cells[:, 0] >= 0).repeat_interleave(Mm)
         scale = k1.float().abs().max().item()
@@ -677,11 +801,17 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
         back = torch.empty_like(fol)
         back[:, finv] = fol
         e41 = (back.float() - k1.float()).abs().max().item()
-        if not e41 <= (2e-2 if name == "bf16" else 1e-5) * scale:
+        ftol = (2e-2 if name == "bf16" else 1e-5) * scale
+        if not e41 <= ftol:
             fail(f"K4 + folded finish {name}: max err {e41} against K1 "
                  f"(scale {scale})")
+        eff = (kf.float() - fol.float()).abs().max().item()
+        if not eff <= ftol:
+            fail(f"K4 folded kernel {name}: max err {eff} against the band + "
+                 f"finish (scale {scale})")
         errs = {}
-        for key, k, p in (("K6", k6, p6), ("K5", k5, p5), ("K4", k4, p4)):
+        for key, k, p in (("K6", k6, p6), ("K5", k5, p5), ("K4", k4, p4),
+                          ("K4 folded", kf, pf)):
             e = (k.float() - p.float()).abs().max().item()
             sc = p.float().abs().max().item()
             if not e <= tol * sc:
@@ -698,14 +828,17 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
                + t_slots * (f1[0].numel() + f2[0].numel()) * es)
         flops = n_live * Mm * 9 * 2 * 64 * 128 * 2
         tabs_b = {"K6": sum(x.numel() for x in tables) * 4,
-                  "K5": cells.numel() * 4, "K4": cells.numel() * 4}
-        ncol = {"K6": 882, "K5": 1152, "K4": 1152}
+                  "K5": cells.numel() * 4, "K4": cells.numel() * 4,
+                  "K4 folded": cells.numel() * 4}
+        ncol = {"K6": 882, "K5": 1152, "K4": 1152, "K4 folded": 882}
         runs = {"K6": (lambda: ck.corr_lattice_cb_cuda(*a6),
                        lambda: ck.corr_lattice_cb_ref(*a6)),
                 "K5": (lambda: pk.corr_lattice_paired_cuda(*a),
                        lambda: pk.corr_lattice_paired_ref(*a)),
                 "K4": (lambda: bk.corr_bands_cuda(*a),
-                       lambda: bk.corr_bands_ref(*a))}
+                       lambda: bk.corr_bands_ref(*a)),
+                "K4 folded": (lambda: bk.corr_folded_cuda(*a),
+                              lambda: bk.corr_folded_ref(*a))}
         k1_ms = cuda_ms(lambda: ck.corr_lattice_cuda(*a), reps=20)
         for key, (kern, plain_fn) in runs.items():
             ms = cuda_ms(kern, reps=20)
@@ -724,10 +857,16 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
             *bk.finish_bands(k4, u, v, vmask), folded=True).to(dt), reps=10)
         fb, fby = bound_ms(E * 1152 * es + 2 * E * 9 * 4 + E + E * 882 * es,
                            E * 9 * 2 * 49 * 7, name)
+        band = outs["K4"][name]["ms"]
+        fold = outs["K4 folded"][name]
         print(f"K4 folded finish (plain PyTorch) {name}: {fin:.4f} ms, bound "
-              f"{fb:.4f} ms ({fby}); K4 + finish {fin + outs['K4'][name]['ms']:.4f}"
-              f" ms against K1 {k1_ms:.4f} ms")
+              f"{fb:.4f} ms ({fby}); K4 band + finish {fin + band:.4f} ms; "
+              f"K4 folded kernel {fold['ms']:.4f} ms (bound "
+              f"{fold['bound_ms']:.4f} ms, {fold['bound_by']}), K1 "
+              f"{k1_ms:.4f} ms; folded kernel vs band + finish max err "
+              f"{eff:.3e}, == K1 through folded_corr_perm bit for bit")
         outs.setdefault("K4 finish", {})[name] = dict(ms=fin, bound_ms=fb)
+        fold["band_ms"] = band
 
 
 def probe_device_us(torch, launch, variants, n=100):
@@ -1183,7 +1322,26 @@ def profile_frames(torch, vo, frames, intr, frame_ms):
 
 
 LAYOUT_KERNEL = {"fused3": "K1", "fused4": "K6", "fused2": "K5",
-                 "folded": "K4"}
+                 "folded": "K4f"}
+
+
+class FinishSpy:
+    """Counts the calls of `corr_band_kernels.finish_bands` on CUDA
+    tensors while it is entered: the folded layout must run none on the
+    card (its correlation is one launch of K4's folded kernel)."""
+
+    def __init__(self, bk):
+        self.bk, self.finish, self.on_card = bk, bk.finish_bands, 0
+
+    def __enter__(self):
+        def spy(bands, *args):
+            self.on_card += int(bands.is_cuda)
+            return self.finish(bands, *args)
+        self.bk.finish_bands = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.bk.finish_bands = self.finish
 
 
 def run_main_path(torch, counters, input_mode, frames, layout="fused3"):
@@ -1634,8 +1792,8 @@ def main() -> int:
     ap.add_argument("--k2-variants", action="store_true",
                     help="only compare the K2 build variants")
     ap.add_argument("--ab", metavar="DIR",
-                    help="only time K7 and K2 in the tree at DIR and in "
-                    "this one, in turns")
+                    help="only time K7, K2, K3 and the folded correlation "
+                    "in the tree at DIR and in this one, in turns")
     args = ap.parse_args()
     try:
         import torch
@@ -1663,7 +1821,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda)
     if args.ab:
@@ -1711,6 +1870,7 @@ def main() -> int:
     check_corr_train(torch, ctk, k7, k8)
     counters = {"K1": ck.corr_lattice, "K2": ek.lstm_fold_cm,
                 "K3": sk.lstm_carry_fold_cm, "K4": bk.corr_lattice_bands,
+                "K4f": bk.corr_folded_cuda,
                 "K5": pk.corr_lattice_paired, "K6": ck.corr_lattice_cb,
                 "K7": ctk.corr_train_cuda, "K8": ctk.corr_train_bwd_cuda,
                 "P1": p1.dynlane, "P2": p2.grid_probe}
@@ -1727,8 +1887,16 @@ def main() -> int:
     for mode, layout in (("MultiScale", "fused3"), ("SingleScale", "fused3"),
                          ("MultiScale", "fused2"), ("MultiScale", "fused4"),
                          ("MultiScale", "folded")):
-        counts, ms, vo = run_main_path(torch, counters, mode, frames, layout)
-        busy, calls = profile_frames(torch, vo, frames[:4], intr, ms)
+        with FinishSpy(bk) as spy:
+            counts, ms, vo = run_main_path(torch, counters, mode, frames,
+                                           layout)
+            busy, calls = profile_frames(torch, vo, frames[:4], intr, ms)
+        if layout == "folded":
+            if spy.on_card:
+                fail(f"folded main path: the PyTorch finish ran {spy.on_card} "
+                     "times on the card")
+            print("folded main path: no PyTorch finish on the card, "
+                  f"{calls:.0f} kernels/frame")
         paths[mode, layout] = counts
         summary.append(f"{mode} {layout} {ms:.3f} ms/frame, device busy "
                        f"{busy:.3f} ms/frame, {calls:.0f} kernels/frame")
@@ -1755,10 +1923,10 @@ def main() -> int:
              source="rampvo_tpu_torch/csrc/lstm_carry_fold.cu",
              replaces="rampvo_tpu/ops/encoder_pallas.py:235",
              launches=n_ss["K3"], **ker, **k3["bf16"]),
-        dict(name="corr_bands", source="rampvo_tpu_torch/csrc/corr_bands.cu",
+        dict(name="corr_folded", source="rampvo_tpu_torch/csrc/corr_bands.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:461",
-             launches=paths["MultiScale", "folded"]["K4"], **ker,
-             **lay["K4"]["bf16"]),
+             launches=paths["MultiScale", "folded"]["K4f"], **ker,
+             **lay["K4 folded"]["bf16"]),
         dict(name="corr_paired", source="rampvo_tpu_torch/csrc/corr_paired.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:721",
              launches=paths["MultiScale", "fused2"]["K5"], **ker,
@@ -1780,6 +1948,7 @@ def main() -> int:
              replaces="scripts/probe_grid_overhead.py:70", **ker,
              **probes["P2"]),
     ]
+    print(card)   # again beside the results: the log's head may be cut
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,56 +9,78 @@
 //   ss1 = pres_ev ? wf^T [ss | h'_ev] + bf : ss
 //   ss2 = pres_im ? wf^T [ss1 | h'_im] + bf : ss1
 // x [8, HW], hc [4hp, HW] rows [h_ev | h_im | c_ev | c_im] and ss [hp, HW]
-// in; ss2 [hp, HW] and hc' = [h' | c'] [4hp, HW] out, f32 or bf16 storage,
-// f32 arithmetic; weights f32; pres int32[2] on the device (no host sync).
+// in; ss2 [hp, HW] and hc' = [h' | c'] [4hp, HW] out, f32 or bf16 storage;
+// pres int32[2] on the device (no host sync). hp = 16.
 //
-// Bound on the H100: bytes. Per pixel it reads 8 + 5hp values and writes
-// 5hp: at hp = 16, HW = 307200 about 103 MB in bf16 (~31 us at 3.35 TB/s),
-// 206 MB in f32, against ~3.8 GFLOP of f32 arithmetic.
-// Design: one thread per pixel (grid-stride), every load and store
-// coalesced along HW. The weights (~23 KB) sit in shared memory,
-// re-packed per hidden unit as float4 (i, f, g, o) over the 8 + 2hp
-// inputs, so one broadcast load feeds four FMAs. The inputs [x | h] are
-// held in registers; the 2hp units are computed one at a time and each
-// unit's h' is folded into the hp accumulators at once, so h', c' and the
-// gates never reach device memory except as the carried output. The event
-// half finishes fold 1 before the image half starts fold 2 from ss1.
+// Bound on the H100, bf16 (the SingleScale main path): bytes. Per pixel it
+// reads 8 + 5hp values and writes 5hp: at HW = 307200 about 103 MB (~31 us
+// at 3.35 TB/s). The 5 transcendental functions of each of the 9.8 M LSTM
+// units take 49 M SFU operations (~12 us at 16 per clock per SM), the ~3.8
+// GFLOP of products < 4 us on the tensor cores.
+//
+// What bounded the first design (one thread per pixel, each of the 32
+// units an f32 FMA chain over all 40 inputs -- half of them the zero
+// blocks of the block-diagonal gate weights -- with every weight from
+// shared memory and accurate expf/tanhf): 0.218 ms, 7x the byte bound, at
+// the same time in f32 and bf16, i.e. the CUDA cores' issue.
+//
+// bf16 design (csrc/lstm_fold.cu's, with a carry): pixels are the M
+// dimension of mma.sync. A warp takes a tile of 16 * MT pixels: it stages
+// x [8, P], hc [4hp, P] and ss [hp, P] from the channel-major rows into its
+// own shared memory with 16-byte cp.async copies, the next tile's while it
+// computes this one (two buffers), and reads the A fragments of x, h and ss
+// with ldmatrix.trans (rows padded: conflict-free). For each 8-unit chunk
+// of [h_ev | h_im], the gates i, f, g, o are four n8 tiles of [x | h] @
+// the gate weights (K = 8 + 2hp = 40: one m16n8k8 step for x, two
+// m16n8k16 steps for h), the f32 accumulators started at the gate biases.
+// The gate weights are dense, as the contract's: their zero blocks cost
+// the tensor cores nothing. The LSTM runs on the accumulators in registers
+// (c read from the staged tile in the accumulator layout; sigmoid(v) =
+// 0.5 + 0.5 tanh(v / 2), tanh by tanh.approx.f32: 5 SFU operations a
+// unit); h' and c' go back into the staged tile in place. Fold 1's
+// accumulators [P, hp] start at bf, take the ss k-step and then the two
+// event chunks' h' as one m16n8k16 A fragment (the accumulator layout of
+// two m16n8 tiles is the A layout of one m16n8k16): h' never touches
+// memory on its way. ss1 = pres_ev ? fold 1 : ss, and its accumulators
+// become fold 2's ss A fragment the same way; fold 2 takes the image
+// chunks. The result leaves through the warp's shared tile in 16-byte
+// stores. The weights are bf16 B fragments in fragment order, packed once
+// per network (ops/singlescale_kernels.py::pack_carry_fold_weights), and
+// copied to shared memory once per persistent block (cp.async, with the
+// warps' first tiles). Rounding, as the TPU kernel's default-precision
+// dots (one bf16 pass): x, h, ss, the weights, h' before each fold and ss1
+// before fold 2 in bf16; sums, biases and the LSTM in f32.
+//
+// f32 storage keeps f32 arithmetic (tolerance 1e-4; no TF32, accurate
+// expf/tanhf): the first design's thread-per-pixel loop.
+//
+// Build variants (-D), compared by `python3 chip_smoke.py --k3-variants`:
+// K3_WARPS (warps a block, 4), K3_MT (m16 tiles a warp tile, 2),
+// K3_MIN_BLOCKS (blocks per SM ptxas aims at, 3), K3_EXACT_TANH
+// (expf/tanhf instead of the SFU approximations in the bf16 path),
+// K3_ONE_BUFFER (one tile buffer a warp).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-
-// Build variants, compared by `python3 chip_smoke.py --k3-variants`:
-// K3_MIN_BLOCKS is the blocks per SM asked of __launch_bounds__ (the
-// wrapper sizes its grid to match), K3_FOLD_UNROLL the unroll count of
-// fold_start's k loop (1: rolled).
-#ifndef K3_MIN_BLOCKS
-#define K3_MIN_BLOCKS 2
-#endif
-#ifndef K3_FOLD_UNROLL
-#define K3_FOLD_UNROLL 1
-#endif
-#define K3_PRAGMA(x) _Pragma(#x)
-#define K3_UNROLL(n) K3_PRAGMA(unroll n)
+#include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using bf16 = __nv_bfloat16;
+constexpr int HP = 16;  // padded hidden size a modality
+
+// ---------------------------------------------------------------------------
+// float32 storage: one thread per pixel
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ float sigm(float v) { return 1.f / (1.f + expf(-v)); }
 
 // One half (event: k0 = 0, image: k0 = HP) of the 2HP units of pixel p:
 // computes each unit's c', h', stores them to ohc and folds h' into acc.
-template <int HP, typename T>
 __device__ __forceinline__ void half_units(
-    int k0, const float (&in)[8 + 2 * HP], const T* __restrict__ hc,
+    int k0, const float (&in)[8 + 2 * HP], const float* __restrict__ hc,
     const float4* wk, const float4* bk, const float* wf, float (&acc)[HP],
-    T* __restrict__ ohc, int HW, int p) {
+    float* __restrict__ ohc, int HW, int p) {
   constexpr int H2 = 2 * HP, NIN = 8 + H2;
 #pragma unroll 1
   for (int k = k0; k < k0 + HP; ++k) {
@@ -72,48 +94,46 @@ __device__ __forceinline__ void half_units(
       g.z = fmaf(in[r], v.z, g.z);
       g.w = fmaf(in[r], v.w, g.w);
     }
-    const float c_old = to_f(hc[(size_t)(H2 + k) * HW + p]);
+    const float c_old = hc[(size_t)(H2 + k) * HW + p];
     const float c = sigm(g.y) * c_old + sigm(g.x) * tanhf(g.z);
     const float h = sigm(g.w) * tanhf(c);
-    from_f(ohc + (size_t)k * HW + p, h);
-    from_f(ohc + (size_t)(H2 + k) * HW + p, c);
+    ohc[(size_t)k * HW + p] = h;
+    ohc[(size_t)(H2 + k) * HW + p] = c;
     const float* wr = wf + (HP + (k - k0)) * HP;      // fold rows [HP, 2HP)
 #pragma unroll
     for (int j = 0; j < HP; ++j) acc[j] = fmaf(h, wr[j], acc[j]);
   }
 }
 
-// acc = bf + wf[0:HP]^T s   (the fold's super-state half). The k loop
-// stays rolled: unrolled, its HP * HP weight loads are scheduled ahead of
-// the FMAs and take ~250 registers, which spill (PERF.md has the times of
-// both, from chip_smoke.py --k3-variants).
-template <int HP>
+// acc = bf + wf[0:HP]^T s (the fold's super-state half). The k loop stays
+// rolled: unrolled, its HP * HP weight loads are scheduled ahead of the
+// FMAs and take ~250 registers, which spill (PERF.md has the times).
 __device__ __forceinline__ void fold_start(const float (&s)[HP],
                                            const float* wf, const float* bf,
                                            float (&acc)[HP]) {
 #pragma unroll
   for (int j = 0; j < HP; ++j) acc[j] = bf[j];
-  K3_UNROLL(K3_FOLD_UNROLL)
+#pragma unroll 1
   for (int k = 0; k < HP; ++k) {
 #pragma unroll
     for (int j = 0; j < HP; ++j) acc[j] = fmaf(s[k], wf[k * HP + j], acc[j]);
   }
 }
 
-// Two blocks per SM by default (at most 128 registers a thread; the
-// inputs, the super-state and the accumulators are 72 floats), the
-// fastest of one, two and three (PERF.md, chip_smoke.py --k3-variants).
-template <int HP, typename T>
-__global__ void __launch_bounds__(256, K3_MIN_BLOCKS)
-lstm_carry_fold_kernel(const T* __restrict__ x, const T* __restrict__ hc,
-                       const T* __restrict__ ss,
-                       const float* __restrict__ wg,
-                       const float* __restrict__ wh,
-                       const float* __restrict__ bg,
-                       const float* __restrict__ wf,
-                       const float* __restrict__ bf,
-                       const int* __restrict__ pres, T* __restrict__ oss,
-                       T* __restrict__ ohc, int HW) {
+// Two blocks of 256 threads per SM (at most 128 registers a thread), the
+// fastest of one, two and three (PERF.md has the times).
+__global__ void __launch_bounds__(256, 2)
+lstm_carry_fold_f32_kernel(const float* __restrict__ x,
+                           const float* __restrict__ hc,
+                           const float* __restrict__ ss,
+                           const float* __restrict__ wg,
+                           const float* __restrict__ wh,
+                           const float* __restrict__ bg,
+                           const float* __restrict__ wf,
+                           const float* __restrict__ bf,
+                           const int* __restrict__ pres,
+                           float* __restrict__ oss, float* __restrict__ ohc,
+                           int HW) {
   constexpr int H2 = 2 * HP, NIN = 8 + H2, G = 8 * HP;
   __shared__ float4 wk[H2 * NIN];   // [unit][input] -> (i, f, g, o)
   __shared__ float4 bk[H2];         // [unit] -> (i, f, g, o)
@@ -136,65 +156,424 @@ lstm_carry_fold_kernel(const T* __restrict__ x, const T* __restrict__ hc,
        p += gridDim.x * blockDim.x) {
     float in[NIN];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) in[c] = to_f(x[(size_t)c * HW + p]);
+    for (int c = 0; c < 8; ++c) in[c] = x[(size_t)c * HW + p];
 #pragma unroll
-    for (int j = 0; j < H2; ++j) in[8 + j] = to_f(hc[(size_t)j * HW + p]);
+    for (int j = 0; j < H2; ++j) in[8 + j] = hc[(size_t)j * HW + p];
     float s[HP], acc[HP];
 #pragma unroll
-    for (int j = 0; j < HP; ++j) s[j] = to_f(ss[(size_t)j * HW + p]);
+    for (int j = 0; j < HP; ++j) s[j] = ss[(size_t)j * HW + p];
 
-    fold_start<HP>(s, wfs, bfs, acc);
-    half_units<HP, T>(0, in, hc, wk, bk, wfs, acc, ohc, HW, p);
+    fold_start(s, wfs, bfs, acc);
+    half_units(0, in, hc, wk, bk, wfs, acc, ohc, HW, p);
 #pragma unroll
     for (int j = 0; j < HP; ++j) s[j] = p_ev ? acc[j] : s[j];
-    fold_start<HP>(s, wfs, bfs, acc);
-    half_units<HP, T>(HP, in, hc, wk, bk, wfs, acc, ohc, HW, p);
+    fold_start(s, wfs, bfs, acc);
+    half_units(HP, in, hc, wk, bk, wfs, acc, ohc, HW, p);
 #pragma unroll
-    for (int j = 0; j < HP; ++j)
-      from_f(oss + (size_t)j * HW + p, p_im ? acc[j] : s[j]);
+    for (int j = 0; j < HP; ++j) oss[(size_t)j * HW + p] = p_im ? acc[j] : s[j];
   }
 }
 
-template <int HP, typename T>
-int launch(const void* x, const void* hc, const void* ss, const float* wg,
-           const float* wh, const float* bg, const float* wf, const float* bf,
-           const int* pres, void* oss, void* ohc, int HW, int grid,
-           cudaStream_t stream) {
-  lstm_carry_fold_kernel<HP, T><<<grid, 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(hc),
-      static_cast<const T*>(ss), wg, wh, bg, wf, bf, pres,
-      static_cast<T*>(oss), static_cast<T*>(ohc), HW);
+// ---------------------------------------------------------------------------
+// bf16 storage: mma.sync
+// ---------------------------------------------------------------------------
+
+#ifndef K3_WARPS
+#define K3_WARPS 4
+#endif
+#ifndef K3_MT
+#define K3_MT 2
+#endif
+#ifndef K3_MIN_BLOCKS
+#define K3_MIN_BLOCKS 3
+#endif
+constexpr int WARPS = K3_WARPS;
+#ifdef K3_ONE_BUFFER  // build variant: load each tile after the last one
+constexpr int NBUF = 1;
+#else
+constexpr int NBUF = 2;  // the next tile's copy overlaps this one's work
+#endif
+
+constexpr int MT = K3_MT;          // m16 tiles a warp tile
+constexpr int PX = 16 * MT;        // pixels a warp tile
+constexpr int LD = PX + 8;         // shared row stride in bf16: ldmatrix
+                                   // conflict-free
+constexpr int NCH = 2 * HP / 8;    // 8-unit chunks of [h_ev | h_im]
+constexpr int XR = 0, HR = 8, CR = HR + 2 * HP, SR = HR + 4 * HP;
+constexpr int ROWS = SR + HP;      // staged rows: x, h, c, ss
+constexpr int GWC = 32 + 2 * 64;   // gate words a (chunk, gate): x, h
+constexpr int GW = NCH * 4 * GWC;  // gate fragment words
+constexpr int FW = 2 * 2 * 64;     // fold fragment words
+constexpr int NB = 8 * HP + HP;    // bias floats: bg, then bf
+constexpr int WARP_ELEMS = ROWS * LD;
+constexpr int SMEM = (GW + FW + NB) * 4 + WARPS * NBUF * WARP_ELEMS * 2;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[2],
+                                        uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+__device__ __forceinline__ float tanh_fast(float v) {
+#ifdef K3_EXACT_TANH
+  return tanhf(v);
+#else
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(v));
+  return y;
+#endif
+}
+
+__device__ __forceinline__ float sigm_fast(float v) {
+#ifdef K3_EXACT_TANH
+  return 1.f / (1.f + expf(-v));
+#else
+  return fmaf(0.5f, tanh_fast(0.5f * v), 0.5f);
+#endif
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Asynchronous 16-byte copy global -> shared (cp.async), its group
+// commit and the wait for every committed group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start copying R channel-major rows of pixels [p0, p0 + PX) of src
+// [R, HW] into dst [R][LD]: cp.async of 16 bytes a lane when the tile is
+// whole and the rows are 16-byte aligned (HW % 8 == 0); else element by
+// element at once, zeros past HW.
+template <int R>
+__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src,
+                                           int HW, int p0, bool vec,
+                                           bf16* __restrict__ dst, int lane) {
+  constexpr int LPR = PX / 8;                    // lanes a row
+  constexpr int RPI = 32 / LPR;                  // rows an instruction
+  if (vec && p0 + PX <= HW) {
+    const int r0 = lane / LPR, c = (lane % LPR) * 8;
+#pragma unroll
+    for (int r = r0; r < R; r += RPI)
+      cp_async16(dst + r * LD + c, src + (size_t)r * HW + p0 + c);
+  } else {
+    for (int i = lane; i < R * PX; i += 32) {
+      const int r = i / PX, c = i - r * PX;
+      dst[r * LD + c] = p0 + c < HW ? src[(size_t)r * HW + p0 + c]
+                                    : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// A tile src [R][LD] back to pixels [p0, p0 + PX) of the rows of dst
+// [R, HW] (pixels past HW not written), 16-byte stores when it can.
+template <int R>
+__device__ __forceinline__ void store_rows(const bf16* __restrict__ src,
+                                           int HW, int p0, bool vec,
+                                           bf16* __restrict__ dst, int lane) {
+  constexpr int LPR = PX / 8;
+  constexpr int RPI = 32 / LPR;
+  if (vec && p0 + PX <= HW) {
+    const int r0 = lane / LPR, c = (lane % LPR) * 8;
+#pragma unroll
+    for (int r = r0; r < R; r += RPI)
+      *reinterpret_cast<uint4*>(dst + (size_t)r * HW + p0 + c) =
+          *reinterpret_cast<const uint4*>(src + r * LD + c);
+  } else {
+    for (int i = lane; i < R * PX; i += 32) {
+      const int r = i / PX, c = i - r * PX;
+      if (p0 + c < HW) dst[(size_t)r * HW + p0 + c] = src[r * LD + c];
+    }
+  }
+}
+
+// One warp tile's x, hc and ss rows into its buffer (cp.async, not
+// committed).
+__device__ __forceinline__ void stage_tile(const bf16* __restrict__ x,
+                                           const bf16* __restrict__ hc,
+                                           const bf16* __restrict__ ss,
+                                           int HW, int p0, bool vec,
+                                           bf16* __restrict__ t, int lane) {
+  stage_rows<8>(x, HW, p0, vec, t + XR * LD, lane);
+  stage_rows<4 * HP>(hc, HW, p0, vec, t + HR * LD, lane);
+  stage_rows<HP>(ss, HW, p0, vec, t + SR * LD, lane);
+}
+
+// The fold accumulators acc[MT][2][4] (rows g, g + 8 of m-tile mt; units
+// 8 nt + 2t, + 1) as bf16 into the ss rows of tile t.
+__device__ __forceinline__ void put_ss(bf16* t, const float (&acc)[MT][2][4],
+                                       int g, int tq) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      bf16* o = t + (SR + nt * 8 + 2 * tq) * LD + mt * 16 + g;
+      o[0] = __float2bfloat16(acc[mt][nt][0]);
+      o[LD] = __float2bfloat16(acc[mt][nt][1]);
+      o[8] = __float2bfloat16(acc[mt][nt][2]);
+      o[LD + 8] = __float2bfloat16(acc[mt][nt][3]);
+    }
+  }
+}
+
+// wfrag, bf16 pairs: the gate B fragments [NCH chunks][4 gates i, f, g, o]
+// [GWC words] -- the x step's [32 lanes] (B[2t][g], B[2t+1][g] of the
+// m16n8k8 step, lane = 4 g + t), then the h steps' [2 k-steps][32 lanes]
+// [2 words] (m16n8k16: rows 2t, 2t+1 and 2t+8, 2t+9, column g) -- then
+// the fold's [2 k-steps: ss, data][2 n-tiles][32 lanes][2 words]. bias,
+// f32: bg [8hp] (the contract's order), then bf [hp].
+__global__ void __launch_bounds__(WARPS * 32, K3_MIN_BLOCKS)
+lstm_carry_fold_mma_kernel(const bf16* __restrict__ x,
+                           const bf16* __restrict__ hc,
+                           const bf16* __restrict__ ss,
+                           const uint32_t* __restrict__ wfrag,
+                           const float* __restrict__ bias,
+                           const int* __restrict__ pres,
+                           bf16* __restrict__ oss, bf16* __restrict__ ohc,
+                           int HW) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const uint32_t* gfr = smem;
+  const uint2* ffr = reinterpret_cast<const uint2*>(smem + GW);
+  const float* bgs = reinterpret_cast<const float*>(smem + GW + FW);
+  const float* bfs = bgs + 8 * HP;
+  bf16* tiles = reinterpret_cast<bf16*>(smem + GW + FW + NB);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool vec = (HW & 7) == 0;
+  const bool p_ev = pres[0] > 0, p_im = pres[1] > 0;
+  const int ntiles = (HW + PX - 1) / PX, stride = gridDim.x * WARPS;
+  // the weights, and this warp's first tile, copied in together
+  for (int i = threadIdx.x; i < (GW + FW) / 4; i += blockDim.x)
+    cp_async16(smem + 4 * i, wfrag + 4 * i);
+  for (int i = threadIdx.x; i < NB / 4; i += blockDim.x)
+    cp_async16(smem + GW + FW + 4 * i, bias + 4 * i);
+  int tile = blockIdx.x * WARPS + warp, buf = 0;
+  if (tile < ntiles)
+    stage_tile(x, hc, ss, HW, tile * PX, vec,
+               tiles + NBUF * warp * WARP_ELEMS, lane);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ldmatrix row addresses of this lane: matrix q = lane / 8, row lane % 8
+  const int q = lane >> 3, r = lane & 7;
+  for (; tile < ntiles; tile += stride, buf ^= NBUF - 1) {
+    const int p0 = tile * PX;
+    bf16* t = tiles + (NBUF * warp + buf) * WARP_ELEMS;
+    bf16* tn = tiles + (NBUF * warp + (buf ^ (NBUF - 1))) * WARP_ELEMS;
+    const bool next = tile + stride < ntiles;
+    if (NBUF == 2 && next)                     // the next tile, meanwhile
+      stage_tile(x, hc, ss, HW, p0 + stride * PX, vec, tn, lane);
+    cp_async_commit();
+
+    // A fragments: x (m16n8k8), h (two m16n8k16 k-steps), ss (m16n8k16)
+    uint32_t ax[MT][2], ah[2][MT][4], as[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      ldsm_x2_trans(ax[mt], t + (XR + r) * LD + mt * 16 + (q & 1) * 8);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        ldsm_x4_trans(ah[ks][mt], t + (HR + ks * 16 + (q >> 1) * 8 + r) * LD +
+                                      mt * 16 + (q & 1) * 8);
+      ldsm_x4_trans(as[mt], t + (SR + (q >> 1) * 8 + r) * LD + mt * 16 +
+                                (q & 1) * 8);
+    }
+    __syncwarp();  // h and ss are in registers: their rows may be rewritten
+
+    // modality m = 0 (event: fold 1 over ss), 1 (image: fold 2 over ss1)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      float acc[MT][2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 b =
+            *reinterpret_cast<const float2*>(bfs + nt * 8 + 2 * tq);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          acc[mt][nt][0] = b.x; acc[mt][nt][1] = b.y;
+          acc[mt][nt][2] = b.x; acc[mt][nt][3] = b.y;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {               // the super-state step
+        const uint2 b = ffr[nt * 32 + lane];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma16816(acc[mt][nt], as[mt], b.x, b.y);
+      }
+      uint32_t ahn[MT][4];                           // this modality's h'
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = 2 * m + half;
+        const uint32_t* bw = gfr + c * 4 * GWC;
+        float2 bb[4];
+#pragma unroll
+        for (int G = 0; G < 4; ++G)
+          bb[G] = *reinterpret_cast<const float2*>(bgs + G * 2 * HP + 8 * c +
+                                                   2 * tq);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float gt[4][4];
+#pragma unroll
+          for (int G = 0; G < 4; ++G) {
+            const uint32_t* w = bw + G * GWC;
+            gt[G][0] = bb[G].x; gt[G][1] = bb[G].y;
+            gt[G][2] = bb[G].x; gt[G][3] = bb[G].y;
+            mma1688(gt[G], ax[mt], w[lane]);
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              const uint2 b = reinterpret_cast<const uint2*>(w + 32)[ks * 32 +
+                                                                    lane];
+              mma16816(gt[G], ah[ks][mt], b.x, b.y);
+            }
+          }
+          // accumulator e: pixel mt*16 + g (+8 for e >= 2), unit 8c + 2t
+          // (+1 for odd e); c there in the staged tile, h' and c' after
+          bf16* cq = t + (CR + 8 * c + 2 * tq) * LD + mt * 16 + g;
+          bf16* hq = t + (HR + 8 * c + 2 * tq) * LD + mt * 16 + g;
+          float hv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int off = (e & 1) * LD + (e >> 1) * 8;
+            const float c_old = __bfloat162float(cq[off]);
+            const float cn = sigm_fast(gt[1][e]) * c_old +
+                             sigm_fast(gt[0][e]) * tanh_fast(gt[2][e]);
+            hv[e] = sigm_fast(gt[3][e]) * tanh_fast(cn);
+            cq[off] = __float2bfloat16(cn);
+            hq[off] = __float2bfloat16(hv[e]);
+          }
+          // chunk `half`'s accumulator = A registers 2 half, 2 half + 1
+          ahn[mt][2 * half] = pack_bf16(hv[0], hv[1]);
+          ahn[mt][2 * half + 1] = pack_bf16(hv[2], hv[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {               // the data step
+        const uint2 b = ffr[(2 + nt) * 32 + lane];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma16816(acc[mt][nt], ahn[mt], b.x, b.y);
+      }
+      if (m == 0 && p_ev) {
+        // ss1: fold 1, as fold 2's A fragment (n-tile nt = A registers
+        // 2 nt, 2 nt + 1), and the output unless the image fold follows
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            as[mt][2 * nt] = pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
+            as[mt][2 * nt + 1] = pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
+          }
+        }
+        if (!p_im) put_ss(t, acc, g, tq);
+      }
+      if (m == 1 && p_im) put_ss(t, acc, g, tq);
+    }
+    __syncwarp();
+    store_rows<4 * HP>(t + HR * LD, HW, p0, vec, ohc, lane);
+    store_rows<HP>(t + SR * LD, HW, p0, vec, oss, lane);
+    if (NBUF == 1 && next) {
+      __syncwarp();
+      stage_tile(x, hc, ss, HW, p0 + stride * PX, vec, tn, lane);
+      cp_async_commit();
+    }
+    cp_async_wait_all();  // the next tile has landed
+    __syncwarp();         // ... and the stores have read t
+  }
+}
+
+int launch_mma(const void* x, const void* hc, const void* ss,
+               const void* wfrag, const void* bias, const int* pres,
+               void* oss, void* ohc, int HW, int sms, cudaStream_t stream) {
+  static int per_sm = 0;  // resident blocks per SM, found once
+  if (per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        lstm_carry_fold_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, lstm_carry_fold_mma_kernel, WARPS * 32, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int need = ((HW + PX - 1) / PX + WARPS - 1) / WARPS;
+  const int grid = need < per_sm * sms ? need : per_sm * sms;
+  lstm_carry_fold_mma_kernel<<<grid, WARPS * 32, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(hc),
+      static_cast<const bf16*>(ss), static_cast<const uint32_t*>(wfrag),
+      static_cast<const float*>(bias), pres, static_cast<bf16*>(oss),
+      static_cast<bf16*>(ohc), HW);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The blocks per SM the kernel was built for: the grid is this many
-// blocks per SM (one wave, grid-stride over the pixels).
-extern "C" int lstm_carry_fold_blocks_per_sm() { return K3_MIN_BLOCKS; }
-
 // x [8, HW], hc [4hp, HW], ss [hp, HW], oss [hp, HW], ohc [4hp, HW] of one
-// dtype (is_bf16); wg [8, 8hp], wh [2hp, 8hp], bg [8hp], wf [2hp, hp],
-// bf [hp] float32; pres int32[2]; all contiguous, outputs not aliasing the
-// inputs. hp must be 16. Returns the cudaError_t of the launch.
+// dtype (is_bf16), contiguous, outputs not aliasing the inputs; pres
+// int32[2]. float32: wg [8, 8hp], wh [2hp, 8hp], bg [8hp], wf [2hp, hp],
+// bf [hp] float32 (wfrag, bias unused). bf16: wfrag and bias as packed by
+// pack_carry_fold_weights (wg .. bf unused). hp must be 16; sms: the
+// card's SM count. Returns the cudaError_t of the launch.
 extern "C" int lstm_carry_fold_launch(const void* x, const void* hc,
                                       const void* ss, const void* wg,
                                       const void* wh, const void* bg,
                                       const void* wf, const void* bf,
+                                      const void* wfrag, const void* bias,
                                       const void* pres, void* oss, void* ohc,
-                                      int HW, int hp, int is_bf16, int grid,
+                                      int HW, int hp, int is_bf16, int sms,
                                       void* stream) {
-  if (hp != 16) return (int)cudaErrorInvalidValue;
+  if (hp != HP) return (int)cudaErrorInvalidValue;
+  if (HW == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wg_ = static_cast<const float*>(wg);
-  const float* wh_ = static_cast<const float*>(wh);
-  const float* bg_ = static_cast<const float*>(bg);
-  const float* wf_ = static_cast<const float*>(wf);
-  const float* bf_ = static_cast<const float*>(bf);
   const int* pr = static_cast<const int*>(pres);
   if (is_bf16)
-    return launch<16, __nv_bfloat16>(x, hc, ss, wg_, wh_, bg_, wf_, bf_, pr,
-                                     oss, ohc, HW, grid, s);
-  return launch<16, float>(x, hc, ss, wg_, wh_, bg_, wf_, bf_, pr, oss, ohc,
-                           HW, grid, s);
+    return launch_mma(x, hc, ss, wfrag, bias, pr, oss, ohc, HW, sms, s);
+  const int need = (HW + 255) / 256;
+  const int grid = need < 2 * sms ? need : 2 * sms;  // one wave
+  lstm_carry_fold_f32_kernel<<<grid, 256, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(hc),
+      static_cast<const float*>(ss), static_cast<const float*>(wg),
+      static_cast<const float*>(wh), static_cast<const float*>(bg),
+      static_cast<const float*>(wf), static_cast<const float*>(bf), pr,
+      static_cast<float*>(oss), static_cast<float*>(ohc), HW);
+  return (int)cudaGetLastError();
 }

@@ -1,18 +1,25 @@
-"""Unblended lattice correlation windows: the Hopper kernel K4
+"""Lattice correlation for the folded layout: the Hopper kernel K4
 (csrc/corr_bands.cu, port of rampvo_tpu/ops/corr_pallas.py::
-_lattice_bands), its plain version, and the plain PyTorch finish of
-`corr_lattice2` and `corr_lattice2_stacked` on top of it.
+_lattice_bands and of the folded `corr_lattice2_stacked` on top of it),
+its plain versions, and the plain PyTorch finish of `corr_lattice2` and
+`corr_lattice2_stacked`.
 
-The kernel emits, for every (edge, patch pixel, level) of the lattice, the
-exact 8x8 integer-aligned window [E, 9, 2, 8, 8] (dy, dx) in the rings'
-dtype, dead cells zero. The JAX band is bf16 whatever its input
-(corr_pallas.py:551-552); the port's band follows the rings' dtype, so it
-is bf16 on the main path and float32 in the f32 tests. The finish (the
-dead-cell mask, the 2x2 bilinear blend and the layout) runs in plain
-PyTorch, as the JAX package runs it in XLA; the TPU kernel's SPREAD `ok`
-mask has no counterpart, since every window is exact. CORR_LAYOUT
-"folded" runs `corr_lattice2_stacked(folded=True)`, which the update
-operator reads through `models.vonet.fold_corr_fc1(net, "folded")`.
+The band kernel (`corr_bands_launch`) emits, for every (edge, patch pixel,
+level) of the lattice, the exact 8x8 integer-aligned window [E, 9, 2, 8, 8]
+(dy, dx) in the rings' dtype, dead cells zero. The JAX band is bf16
+whatever its input (corr_pallas.py:551-552); the port's band follows the
+rings' dtype, so it is bf16 on the main path and float32 in the f32 tests.
+`corr_lattice2` and `corr_lattice2_stacked(folded=False)` finish it (the
+dead-cell mask, the 2x2 bilinear blend and the layout) in plain PyTorch,
+as the JAX package finishes it in XLA; the TPU kernel's SPREAD `ok` mask
+has no counterpart, since every window is exact.
+
+CORR_LAYOUT "folded" runs `corr_lattice2_stacked(folded=True)`, which the
+update operator reads through `models.vonet.fold_corr_fc1(net, "folded")`.
+On the card that is one launch of the folded kernel (`corr_folded_launch`:
+K1's blend inside the kernel, written in the folded layout, equal to K1's
+output through `ops.corr_perms.folded_corr_perm` bit for bit); on the CPU
+it is the band's plain version and the finish, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,12 +32,15 @@ from .corr_kernels import (
     C,
     cell_tables,
     cell_vmask,
+    corr_lattice_ref,
     launch_lattice,
 )
+from .corr_perms import folded_corr_perm
 
 D = 2 * RADIUS + 2
 d = 2 * RADIUS + 1
-NCOL = 9 * 2 * D * D
+NCOL = 9 * 2 * D * D     # band columns an edge
+NFOLD = 2 * 9 * d * d    # folded columns an edge
 
 
 def corr_bands_ref(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int,
@@ -79,6 +89,26 @@ def corr_lattice_bands(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
 
 
 corr_lattice_bands.launches = 0
+
+
+def corr_folded_ref(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int):
+    """Plain version of the folded kernel: `corr_lattice_ref` (reference
+    layout) in the folded columns. Arguments as `corr_lattice_ref`;
+    returns [E, 882] in the rings' dtype."""
+    ref = corr_lattice_ref(gmap_r, fmap1_r, fmap2_r, u, v, cells, M)
+    return ref[:, torch.tensor(folded_corr_perm(3, 3), dtype=torch.long,
+                               device=ref.device)]
+
+
+def corr_folded_cuda(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int):
+    """Launch K4's folded kernel (same contract as `corr_folded_ref`)."""
+    out = launch_lattice("corr_bands", "corr_folded_launch", NFOLD, gmap_r,
+                         fmap1_r, fmap2_r, u, v, cells, M)
+    corr_folded_cuda.launches += 1
+    return out
+
+
+corr_folded_cuda.launches = 0
 
 
 def finish_bands(bands, u, v, vmask):
@@ -130,7 +160,14 @@ def corr_lattice2_stacked(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
     """Port of the reference's corr_lattice2_stacked, in the rings' dtype:
     folded=False, the reference layout [E, 882] (level fastest, as
     corr_stack); folded=True, the folded layout [E, (level, pixel, y, x)]
-    that `ops.corr_perms.folded_corr_perm` maps to the reference."""
+    that `ops.corr_perms.folded_corr_perm` maps to the reference -- on
+    the card one launch of the folded kernel, with no finish."""
+    if folded and gmap_r.is_cuda:
+        NI, T, M = lat
+        cells = cell_tables(NI, T, r, n, cell_valid, slotmap,
+                            gmap_r.shape[0])
+        return corr_folded_cuda(gmap_r, fmap1_r, fmap2_r, u.contiguous(),
+                                v.contiguous(), cells, M)
     o1, o2 = _bands_and_mask(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n,
                              slotmap, r, lat)
     return stack_levels(o1, o2, folded).to(gmap_r.dtype)

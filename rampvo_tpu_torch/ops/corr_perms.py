@@ -6,7 +6,7 @@ The reference layout (corr_stack) holds, in column
 ((py*P + px)*d*d + a*d + b)*2 + l, level l's blended window of patch pixel
 (py, px) at x shift a and y shift b (d = 2R + 1). The paired layout (K5)
 holds it in column q*128 + l*64 + b*8 + a, 128 columns per pixel, with
-zeros where a or b is d; the folded layout (K4's folded finish) in column
+zeros where a or b is d; the folded layout (K4's folded kernel) in column
 l*(P*P*d*d) + q*d*d + b*d + a. `models.vonet.fold_corr_fc1` turns these
 maps into corr_fc1 weights that read each layout directly.
 """

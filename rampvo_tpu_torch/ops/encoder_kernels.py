@@ -118,8 +118,9 @@ def refuse_autograd(what: str, *tensors):
 _SMS: dict = {}
 
 
-def _sm_count(dev) -> int:
-    """The card's SM count (the kernel sizes its persistent grid by it)."""
+def sm_count(dev) -> int:
+    """The card's SM count, read once per device (the encoder kernels size
+    their persistent grids by it)."""
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     return _SMS[dev]
@@ -155,7 +156,7 @@ def lstm_fold_cuda(x_cm, ss_cm, wg, bg, wf, bf, packed=None, defines=()):
     lib = build.load("lstm_fold", _SIG, defines)
     err = lib.lstm_fold_launch(
         x_cm.data_ptr(), ss_cm.data_ptr(), *(t.data_ptr() for t in w),
-        out.data_ptr(), HW, h, int(dt == torch.bfloat16), _sm_count(dev),
+        out.data_ptr(), HW, h, int(dt == torch.bfloat16), sm_count(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "lstm_fold_launch")

@@ -1,4 +1,4 @@
-"""The SingleScale encoder's recurrent chain through the Hopper kernel
+"""The SingleScale encoder's recurrent chain through the Hopper kernel K3
 (csrc/lstm_carry_fold.cu). Port of the SingleScale part of
 rampvo_tpu/ops/encoder_pallas.py (lstm_carry_fold_cm, the weight packing,
 the channel-major state and the encode function).
@@ -12,18 +12,24 @@ flags are a device int32[2]: no host sync per frame. The two BasicEncoder4
 heads stay torch.nn convolutions (models/encoders.py).
 
 `lstm_carry_fold_cm` launches the kernel for CUDA tensors and runs
-`lstm_carry_fold_ref` for CPU tensors; nothing falls back.
+`lstm_carry_fold_ref` for CPU tensors; nothing falls back. The bf16
+kernel runs the gate products and the folds on the tensor cores and reads
+its weights as bf16 B fragments (`pack_carry_fold_weights`);
+`singlescale_weights` packs a network's weights once, and
+`lstm_carry_fold_bf16_ref` is the plain mirror that rounds where that
+kernel rounds.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .encoder_kernels import refuse_autograd
+from .encoder_kernels import refuse_autograd, sm_count
 from ..models.encoders import SS_LSTM_DIM, SingleScaleEncoder
 
 
@@ -50,16 +56,84 @@ def lstm_carry_fold_ref(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres):
     return ss.to(ss_cm.dtype), torch.cat([h, c]).to(hc_cm.dtype)
 
 
-_SIG = {"lstm_carry_fold_launch": [ctypes.c_void_p] * 11
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "lstm_carry_fold_blocks_per_sm": []}
+def lstm_carry_fold_bf16_ref(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
+                             h=None, ss1=None):
+    """`lstm_carry_fold_ref` rounded where the bf16 kernel rounds: x, h, c,
+    ss and the weights to bf16, the LSTM output h' to bf16 before each
+    fold, ss1 (the event fold's result) to bf16 before the image fold;
+    products, sums, biases and the LSTM's functions in float32 (the
+    kernel's are the SFU approximations). `h` [2hp, HW] and `ss1` [hp, HW],
+    when given, are the bf16 values the folds take for h' and ss1 -- a
+    kernel's own rounded intermediates, which hold each fold apart from
+    the roundings before it; by default the mirror's own. Returns (ss'
+    [hp, HW], hc' [4hp, HW]) float32, before the kernel's last rounding
+    (to bf16)."""
+    hp = ss_cm.shape[0]
+    r = lambda t: t.to(torch.bfloat16).float()
+    gates = (r(wg).t() @ r(x_cm) + r(wh).t() @ r(hc_cm[:2 * hp])
+             + bg.float()[:, None])
+    i, f, g, o = gates.split(2 * hp)
+    c = torch.sigmoid(f) * r(hc_cm[2 * hp:]) + torch.sigmoid(i) * torch.tanh(g)
+    hn = torch.sigmoid(o) * torch.tanh(c)
+    hr = r(hn) if h is None else h.float()
+    wft, bfc = r(wf).t(), bf.float()[:, None]
+    p = pres.reshape(2) > 0
+    ss = r(ss_cm)
+    s1 = torch.where(p[0], wft @ torch.cat([ss, hr[:hp]]) + bfc, ss)
+    s1r = r(s1) if ss1 is None else ss1.float()
+    s2 = torch.where(p[1], wft @ torch.cat([s1r, hr[hp:]]) + bfc, s1)
+    return s2, torch.cat([hn, c])
+
+
+class CarryFoldWeights(NamedTuple):
+    """K3's weights: the contract's float32 weights, which the plain
+    version and the f32 kernel read, and what the bf16 kernel reads --
+    `frag`, bf16 pairs in mma fragment order (per 8-unit chunk of
+    [h_ev | h_im] and gate i, f, g, o: the x step's [32 lanes][2], then the
+    h steps' [2 k-steps][32 lanes][4]; then the fold's [2 k-steps: ss,
+    data][2 n-tiles][32 lanes][4]), and `bias`, float32 (bg, then bf)."""
+    wg: torch.Tensor    # [8, 8hp]
+    wh: torch.Tensor    # [2hp, 8hp]
+    bg: torch.Tensor    # [8hp]
+    wf: torch.Tensor    # [2hp, hp] over rows [ss | data]
+    bf: torch.Tensor    # [hp]
+    frag: torch.Tensor
+    bias: torch.Tensor
+
+
+@torch.no_grad()
+def pack_carry_fold_weights(wg, wh, bg, wf, bf) -> CarryFoldWeights:
+    """The kernel's weights from `lstm_carry_fold_ref`'s
+    (csrc/lstm_carry_fold.cu). With column n = G 2hp + 8c + g of gate G,
+    chunk c: lane l = 4 g + t of the x step holds wg[2t + i, n] (i = 0,
+    1); of h k-step ks, wh[16 ks + 2t + i (+ 8), n]; of fold k-step ks and
+    n-tile nt, wf[16 ks + 2t + i (+ 8), 8 nt + g]. Constant for a frozen
+    network: pack once (`singlescale_weights`)."""
+    wg, wh, bg, wf, bf = (t.float().contiguous() for t in (wg, wh, bg, wf, bf))
+    hp = wf.shape[1]
+    nch = 2 * hp // 8
+    gx = wg.reshape(4, 2, 4, nch, 8).permute(3, 2, 4, 0, 1)   # [c, G, g, t, i]
+    gh = wh.reshape(2, 2, 4, 2, 4, nch, 8).permute(
+        5, 4, 0, 6, 2, 1, 3)                          # [c, G, ks, g, t, j, i]
+    gate = torch.cat([gx.reshape(nch, 4, -1), gh.reshape(nch, 4, -1)], 2)
+    fold = wf.reshape(2, 2, 4, 2, hp // 8, 8).permute(
+        0, 4, 5, 2, 1, 3)                             # [ks, nt, g, t, j, i]
+    frag = torch.cat([gate.reshape(-1), fold.reshape(-1)]).to(
+        torch.bfloat16).contiguous()
+    return CarryFoldWeights(wg, wh, bg, wf, bf, frag, torch.cat([bg, bf]))
+
+
+_SIG = {"lstm_carry_fold_launch": [ctypes.c_void_p] * 13
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 
 
 def lstm_carry_fold_cuda(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
-                         defines=()):
+                         packed=None, defines=()):
     """Launch the Hopper kernel (same contract as `lstm_carry_fold_ref`).
-    `defines` selects a build variant of the source (see its head). It has
-    no backward (the VO runtime calls it under no_grad)."""
+    It has no backward (the VO runtime calls it under no_grad). `packed`
+    is `pack_carry_fold_weights(wg, wh, bg, wf, bf)` of these very
+    tensors, packed here when None; `defines` picks a build variant of the
+    source (see its head)."""
     refuse_autograd("lstm_carry_fold", x_cm, hc_cm, ss_cm, wg, wh, bg, wf,
                     bf, pres)
     Cp, HW = x_cm.shape
@@ -72,27 +146,35 @@ def lstm_carry_fold_cuda(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
             or hc_cm.dtype != dt:
         raise TypeError("lstm_carry_fold: x, hc and ss must share a f32/bf16 "
                         "dtype")
-    w = [t.float().contiguous() for t in (wg, wh, bg, wf, bf)]
+    if not (x_cm.is_cuda and hc_cm.is_cuda and ss_cm.is_cuda):
+        raise ValueError("lstm_carry_fold: inputs must be contiguous CUDA")
+    if packed is None:
+        w = pack_carry_fold_weights(wg, wh, bg, wf, bf)
+    elif any(p is not q for p, q in zip(packed[:5], (wg, wh, bg, wf, bf))):
+        raise ValueError("lstm_carry_fold: `packed` holds other weights "
+                         "than the ones given")
+    else:
+        w = packed
     pres = pres.to(torch.int32).contiguous()
-    if w[0].shape != (8, 8 * hp) or w[1].shape != (2 * hp, 8 * hp) \
-            or w[2].numel() != 8 * hp or w[3].shape != (2 * hp, hp) \
-            or w[4].numel() != hp or pres.numel() != 2 \
-            or hc_cm.shape != (4 * hp, HW) or ss_cm.shape[1] != HW:
+    if w.wg.shape != (8, 8 * hp) or w.wh.shape != (2 * hp, 8 * hp) \
+            or w.bg.numel() != 8 * hp or w.wf.shape != (2 * hp, hp) \
+            or w.bf.numel() != hp or w.bias.numel() != 9 * hp \
+            or w.frag.numel() != (8 + 2 * hp) * 8 * hp + 2 * hp * hp \
+            or pres.numel() != 2 or hc_cm.shape != (4 * hp, HW) \
+            or ss_cm.shape[1] != HW:
         raise ValueError("lstm_carry_fold: weight or state shape")
     for t in (x_cm, hc_cm, ss_cm, *w, pres):
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError("lstm_carry_fold: inputs must be contiguous CUDA")
+        if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("lstm_carry_fold: inputs must be contiguous "
+                             "CUDA, 16-byte aligned")
     oss = torch.empty_like(ss_cm)
     ohc = torch.empty_like(hc_cm)
     dev = x_cm.device
     lib = build.load("lstm_carry_fold", _SIG, defines)
-    # one wave of the 256-thread blocks the build keeps on each SM
-    grid = min(-(-HW // 256), lib.lstm_carry_fold_blocks_per_sm()
-               * torch.cuda.get_device_properties(dev).multi_processor_count)
     err = lib.lstm_carry_fold_launch(
         x_cm.data_ptr(), hc_cm.data_ptr(), ss_cm.data_ptr(),
         *(t.data_ptr() for t in w), pres.data_ptr(), oss.data_ptr(),
-        ohc.data_ptr(), HW, hp, int(dt == torch.bfloat16), grid,
+        ohc.data_ptr(), HW, hp, int(dt == torch.bfloat16), sm_count(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "lstm_carry_fold_launch")
@@ -100,13 +182,15 @@ def lstm_carry_fold_cuda(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
     return oss, ohc
 
 
-def lstm_carry_fold_cm(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres):
+def lstm_carry_fold_cm(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
+                       packed=None):
     """Channel-major carried LSTM + shared-fold step (see
-    `lstm_carry_fold_ref`)."""
+    `lstm_carry_fold_ref`); `packed` (`pack_carry_fold_weights` of the
+    same weights) spares the CUDA path packing them."""
     if x_cm.is_cuda:
         return lstm_carry_fold_cuda(x_cm.contiguous(), hc_cm.contiguous(),
                                     ss_cm.contiguous(), wg, wh, bg, wf, bf,
-                                    pres)
+                                    pres, packed)
     return lstm_carry_fold_ref(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres)
 
 
@@ -171,13 +255,13 @@ def singlescale_fold_weights(enc: SingleScaleEncoder, hp: int):
 
 
 @torch.no_grad()
-def singlescale_weights(enc: SingleScaleEncoder):
-    """The kernel's packed weights (wg, wh, bg, wf, bf) of an encoder. They
-    are constant for a frozen network, so a caller that encodes many
-    frames packs them once."""
+def singlescale_weights(enc: SingleScaleEncoder) -> CarryFoldWeights:
+    """K3's weights of an encoder, interleaved, padded and packed. They are
+    constant for a frozen network, so a caller that encodes many frames
+    packs them once."""
     hp = padded_dim(enc.events_convlstm.hidden_size)
-    return (*singlescale_gate_weights(enc, hp),
-            *singlescale_fold_weights(enc, hp))
+    return pack_carry_fold_weights(*singlescale_gate_weights(enc, hp),
+                                   *singlescale_fold_weights(enc, hp))
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +309,8 @@ def singlescale_encode(enc: SingleScaleEncoder, events, images, state,
     pres = torch.stack([ev.ne(0).any(), im.ne(0).any()]).to(torch.int32)
     x = torch.cat([ev, im], dim=-1)
     x_cm = x.reshape(-1, x.shape[-1]).t().to(state["ss"].dtype)
-    ss, hc = lstm_carry_fold_cm(x_cm, state["hc"], state["ss"], *weights,
-                                pres)
+    ss, hc = lstm_carry_fold_cm(x_cm, state["hc"], state["ss"], *weights[:5],
+                                pres, packed=weights)
     new_state = {"hc": hc, "ss": ss}
     if not heads:
         return None, None, new_state

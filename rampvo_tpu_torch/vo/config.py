@@ -14,8 +14,9 @@ import dataclasses
 
 # CORR_LAYOUT -> the column layout its kernel hands the update operator
 # (vo/runtime.py::_lattice_corr): fused3 K1 and fused4 K6 emit corr_fc1's
-# own [E, 882] order; fused2 K5 the paired and folded K4 (+ its PyTorch
-# finish) the folded layout, read through models.vonet.fold_corr_fc1.
+# own [E, 882] order; fused2 K5 the paired and folded K4 (its folded
+# kernel on the card) the folded layout, read through
+# models.vonet.fold_corr_fc1.
 CORR_LAYOUTS = {"fused3": "reference", "fused4": "reference",
                 "fused2": "paired", "folded": "folded"}
 

@@ -485,7 +485,7 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
 
     enc = net_h.patchify.encoder
     if vonet.input_mode == "SingleScale":
-        packed = singlescale_weights(enc)        # the network is frozen
+        packed = singlescale_weights(enc)   # packed once: the net is frozen
 
         def encode(events, images, mask, enc_state, heads):
             return singlescale_encode(enc, events, images, enc_state, heads,

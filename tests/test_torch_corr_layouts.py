@@ -125,7 +125,7 @@ def test_k4_matches_corr_lattice2():
     pa = _port_args(*prob[:5], n, prob[5], r, torch.bfloat16)
     ja = _jax_args(*prob[:5], n, prob[5])
     live = _live(prob[4], n, r)
-    launches = bk.corr_lattice_bands.launches
+    launches = (bk.corr_lattice_bands.launches, bk.corr_folded_cuda.launches)
     c1, c2 = bk.corr_lattice2(*pa)
     assert c1.dtype == torch.float32 and c1.shape == (NI * T * M, 3, 3, 49)
     j1, j2 = jcp.corr_lattice2(*ja, r, 3, interpret=True)
@@ -139,8 +139,9 @@ def test_k4_matches_corr_lattice2():
                                          folded=folded)
         _close(npy(got)[live], npy(want)[live])
         assert (npy(got)[~live] == 0).all()
-    # CPU tensors never launch the kernel
-    assert bk.corr_lattice_bands.launches == launches
+    # CPU tensors never launch the kernels
+    assert (bk.corr_lattice_bands.launches,
+            bk.corr_folded_cuda.launches) == launches
 
 
 @pytest.mark.parametrize("n", [7, 3])
@@ -163,6 +164,31 @@ def test_k4_is_k1_function(n):
     bands = bk.corr_lattice_bands(*pa).numpy()
     assert bands.shape == (NI * T * M, 9, 2, 8, 8)
     assert (bands[~_live(prob[4], n, r)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_folded_ref_matches_jax(dtype):
+    """corr_folded_ref (the plain version of the folded kernel that CUDA
+    tensors take: K1's plain version in the folded columns, dead cells
+    zero) == the JAX corr_lattice2_stacked(folded=True) on _lattice_bands
+    in interpret mode (atol 2e-2 of scale: the JAX band is bf16), and ==
+    the port's CPU folded path (bands + finish) within 1e-5 of scale in
+    float32, 2e-2 in bf16 (the band's rounding)."""
+    n = 6
+    prob = _lattice(6, n, NI, T, M, MEM)
+    r = prob[-1]
+    tdt = getattr(torch, dtype)
+    pa = _port_args(*prob[:5], n, prob[5], r, tdt)
+    cells = ck.cell_tables(NI, T, r, n, pa[5], pa[7], MEM)
+    got = bk.corr_folded_ref(*pa[:5], cells, M)
+    assert got.dtype == tdt and got.shape == (NI * T * M, 882)
+    live = _live(prob[4], n, r)
+    want = jcp.corr_lattice2_stacked(*_jax_args(*prob[:5], n, prob[5]), r, 3,
+                                     interpret=True, folded=True)
+    _close(npy(got)[live], npy(want)[live])
+    assert (npy(got)[~live] == 0).all()
+    _close(npy(got), npy(bk.corr_lattice2_stacked(*pa, folded=True)),
+           1e-5 if dtype == "float32" else 2e-2)
 
 
 # ---------------------------------------------------------------------------

@@ -116,6 +116,85 @@ def test_lstm_carry_fold_ref_vs_pallas(pres, dtype):
         np.testing.assert_array_equal(npy(b_ss), npy(t(ss).to(tdt)))
 
 
+@pytest.mark.parametrize("pres", [(1, 1), (1, 0), (0, 1)])
+def test_lstm_carry_fold_bf16_ref(pres):
+    """lstm_carry_fold_bf16_ref (the bf16 kernel's roundings: bf16 weights,
+    h' before each fold and ss1 before the image fold in bf16, f32 sums)
+    on bf16 inputs, rounded to bf16 as the kernel's outputs are: within
+    1e-2 of scale of lstm_carry_fold_ref and of the Pallas
+    lstm_carry_fold_cm(interpret=True) (a few bf16 roundings apart), both
+    outputs, each presence pattern."""
+    x, hc, ss, wg, wh, bg, wf, bf = _k3_inputs(11 + 2 * pres[0] + pres[1])
+    pr = np.asarray(pres, np.int32)
+    xb, hcb, ssb = (t(a).bfloat16() for a in (x, hc, ss))
+    w = (t(wg), t(wh), t(bg), t(wf), t(bf))
+    got = sk.lstm_carry_fold_bf16_ref(xb, hcb, ssb, *w, t(pr))
+    assert all(g.dtype == torch.float32 for g in got)
+    assert got[0].shape == (16, 300) and got[1].shape == (64, 300)
+    a = jep.lstm_carry_fold_cm(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(hc, jnp.bfloat16),
+        jnp.asarray(ss, jnp.bfloat16), jnp.asarray(wg), jnp.asarray(wh),
+        jnp.asarray(bg), jnp.asarray(wf), jnp.asarray(bf), jnp.asarray(pr),
+        hwb=256, interpret=True)
+    b = sk.lstm_carry_fold_ref(xb, hcb, ssb, *w, t(pr))
+    for k in range(2):
+        gotb = npy(got[k].bfloat16())
+        for want in (npy(a[k]), npy(b[k])):
+            assert np.abs(gotb - want).max() <= 1e-2 * max(1.0,
+                                                           np.abs(want).max())
+    # handed its own rounded intermediates (h', and ss1 as the event fold
+    # alone gives it), the mirror gives exactly what it gives by itself
+    ss1 = sk.lstm_carry_fold_bf16_ref(xb, hcb, ssb, *w,
+                                      t(np.array([1, 0], np.int32)))[0]
+    again = sk.lstm_carry_fold_bf16_ref(
+        xb, hcb, ssb, *w, t(pr), h=got[1][:32].bfloat16(),
+        ss1=ss1.bfloat16() if pres[0] else None)
+    assert all(torch.equal(u, v) for u, v in zip(again, got))
+
+
+def test_pack_carry_fold_weights():
+    """pack_carry_fold_weights puts each weight where
+    csrc/lstm_carry_fold.cu reads it: with column n = 32 G + 8 c + g of
+    gate G (i, f, g, o), chunk c, lane l = 4 g + t of the x step holds
+    wg[2t + i, n] (i = 0, 1), of h k-step ks wh[16 ks + 2t + i + 8 j, n]
+    (word j); of fold k-step ks (ss, data), n-tile nt, wf[16 ks + 2t + i +
+    8 j, 8 nt + g]. Weights in bf16; bias = [bg | bf] exact; the float32
+    weights kept as given."""
+    _, _, _, wg, wh, bg, wf, bf = _k3_inputs(21)
+    cw = sk.pack_carry_fold_weights(t(wg), t(wh), t(bg), t(wf), t(bf))
+    assert cw.frag.dtype == torch.bfloat16 and cw.bias.dtype == torch.float32
+    assert cw.frag.numel() == 40 * 128 + 2 * 16 * 16
+    for got, want in zip(cw[:5], (wg, wh, bg, wf, bf)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    frag = cw.frag.float().numpy()
+    rb = lambda a: t(a).bfloat16().float().numpy()
+    lane = np.arange(32)
+    g, tt = lane // 4, lane % 4
+    gate = frag[:5120].reshape(4, 4, 320)
+    for c in range(4):
+        for G in range(4):
+            n = 32 * G + 8 * c + g
+            xs = gate[c, G, :64].reshape(32, 2)
+            for i in range(2):
+                np.testing.assert_array_equal(xs[:, i], rb(wg)[2 * tt + i, n])
+            hs = gate[c, G, 64:].reshape(2, 32, 2, 2)
+            for ks in range(2):
+                for j in range(2):
+                    for i in range(2):
+                        np.testing.assert_array_equal(
+                            hs[ks, :, j, i],
+                            rb(wh)[16 * ks + 2 * tt + i + 8 * j, n])
+    fold = frag[5120:].reshape(2, 2, 32, 2, 2)
+    for ks in range(2):
+        for nt in range(2):
+            for j in range(2):
+                for i in range(2):
+                    np.testing.assert_array_equal(
+                        fold[ks, nt, :, j, i],
+                        rb(wf)[16 * ks + 2 * tt + i + 8 * j, 8 * nt + g])
+    np.testing.assert_array_equal(cw.bias.numpy(), np.concatenate([bg, bf]))
+
+
 # ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
