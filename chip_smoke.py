@@ -8,6 +8,7 @@
     python3 chip_smoke.py --k8-variants    # only K8's build variants, timed
     python3 chip_smoke.py --k7-variants    # only K7's build variants, timed
     python3 chip_smoke.py --k2-variants    # only K2's build variants, timed
+    python3 chip_smoke.py --chunk-only     # only the chunked path (4b)
     python3 chip_smoke.py --ab DIR         # K7, K2, K3 and the folded
                                            # correlation here and in the
                                            # tree at DIR, in turns
@@ -38,7 +39,12 @@ MultiScale under CORR_LAYOUT fused2, fused4 and folded (each layout's
 kernel launches once per update, the other correlation kernels never;
 the folded path runs no PyTorch finish on the card) --
 and a shorter MultiScale pass with the default keyframe threshold so the
-eviction remap runs; (5) the evaluation CLI's run -> evaluate_sequence
+eviction remap runs; (4b) the chunked path, RampVO(chunk=8), whose
+initialized frames are one CUDA-graph replay per 8 frames, held bit for
+bit against the eager driver from the same state in both modes, under
+every layout and with evicted and kept frames inside one replay past
+NI, and timed against it and against the branchless frame run eagerly in
+turns (`run_chunk_path`); (5) the evaluation CLI's run -> evaluate_sequence
 -> score -> save_stamped_trajectories in both input modes on an
 in-memory 480x640 scene of 24 frames and 6 events-only frames, with the
 motion probe off and launch counts that show every frame tracked (the
@@ -1296,9 +1302,11 @@ def check_small_slice(torch, input_mode, layout="fused3"):
 
 def profile_frames(torch, vo, frames, intr, frame_ms):
     """Device time of a few steady frames by kernel (torch.profiler): the
-    device-busy time against the unprofiled frame time `frame_ms` (the
-    profiler's own start-up makes the profiled wall time meaningless), the
-    kernels launched per frame and the largest kernels."""
+    device-busy time, its share of the profiled run's own span (host
+    clock from a synchronize before the frames to one after them, inside
+    the profiler, so the kernels counted lie within it), the kernels
+    launched per frame and the largest kernels. `frame_ms`, the
+    unprofiled frame time, is printed beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1306,19 +1314,23 @@ def profile_frames(torch, vo, frames, intr, frame_ms):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         for f, (ev, im) in enumerate(frames):
             vo(1000 + f, ev, im, [True], intr)
         torch.cuda.synchronize()
+        span = (time.perf_counter() - t) * 1e3 / n
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev) / 1e3 / n
     calls = sum(e.count for e in dev) / n
     print(f"profile ({n} steady frames): device busy {busy:.3f} ms/frame, "
-          f"{100 * busy / frame_ms:.1f}% of the {frame_ms:.3f} ms frame; "
+          f"{100 * busy / span:.1f}% of the profiled run's {span:.3f} "
+          f"ms/frame span (unprofiled frame {frame_ms:.3f} ms); "
           f"{calls:.0f} kernels/frame")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/frame "
               f"{e.count / n:6.1f}x  {e.key[:90]}")
-    return busy, calls
+    return busy, calls, busy / span
 
 
 LAYOUT_KERNEL = {"fused3": "K1", "fused4": "K6", "fused2": "K5",
@@ -1430,6 +1442,328 @@ def run_eviction_pass(torch, frames):
         fail(f"eviction pass: evicted={evicted}")
     print(f"eviction pass (KEYFRAME_THRESH=15): 16 frames, {evicted} "
           f"keyframes evicted, trajectory finite")
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the chunked path, a CUDA-graph replay of the initialized frame
+# ---------------------------------------------------------------------------
+
+CHUNK_K = 8
+EAGER_PAIRS, EAGER_TURN = 10, 20   # host-driven / branchless pairs, frames
+ENC_KERNEL = {"MultiScale": ("lstm_fold_cm", 3),
+              "SingleScale": ("lstm_carry_fold_cm", 1)}
+CORR_WRAPPER = {"fused3": "corr_lattice", "fused4": "corr_lattice_cb",
+                "fused2": "corr_lattice_paired", "folded": "corr_folded_cuda"}
+
+
+def bench_vo(torch, mode, layout, K, thresh=0.0):
+    """A RampVO at chunk=K on bench.py's VOConfig (KEYFRAME_THRESH
+    `thresh`) at 480x640, M=96, bf16, CORR_LAYOUT `layout`, seeded
+    weights."""
+    from rampvo_tpu_torch.models.vonet import VONet, init_weights
+    from rampvo_tpu_torch.vo import RampVO, VOConfig
+
+    cfg = VOConfig(BUFFER_SIZE=512, MAX_FRAMES=512, PATCHES_PER_FRAME=M,
+                   MIXED_PRECISION=True, PROBE_THRESH=-1.0,
+                   KEYFRAME_THRESH=thresh, CORR_LAYOUT=layout)
+    net = init_weights(VONet(mode), torch.Generator().manual_seed(0))
+    return RampVO(cfg, net, input_mode=mode, ht=H, wd=W, device="cuda",
+                  seed=0, chunk=K)
+
+
+def copy_into(vo, state, tlist):
+    """Every tensor and scalar of `state` into `vo`'s own state."""
+    from rampvo_tpu_torch.vo.graph import state_tensors
+
+    for a, b in zip(state_tensors(vo.state), state_tensors(state)):
+        a.copy_(b)
+    for name in ("n", "counter", "initialized"):
+        setattr(vo.state, name, getattr(state, name))
+    vo.tlist = list(tlist)
+
+
+def chunk_twins(torch, mode, layout, K, frames, intr, warm):
+    """A RampVO at chunk=1 and its twin at chunk=K from one state
+    (`bench_vo`, never evicting): the eager driver runs `warm` frames,
+    then its state is copied into the twin's."""
+    eager, graph = (bench_vo(torch, mode, layout, k) for k in (1, K))
+    for f in range(warm):
+        eager(f, *frames[f % len(frames)], [True], intr)
+    copy_into(graph, eager.state, eager.tlist)
+    return eager, graph
+
+
+def state_diff(a, b) -> dict:
+    """Max |a - b| over the compared fields of two states (poses and
+    inverse depths of the committed frames, the lattice's hidden state),
+    entries that differ in l2g and cell_valid, and n / counter gaps."""
+    c = max(a.counter, b.counter)
+    d = {"n": abs(a.n - b.n), "counter": abs(a.counter - b.counter)}
+    for name in ("poses", "pat_d"):
+        d[name] = float((getattr(a, name)[:c] - getattr(b, name)[:c])
+                        .abs().max())
+    d["net"] = float((a.net - b.net).abs().max())
+    for name in ("l2g", "cell_valid"):
+        d[name] = int((getattr(a, name) != getattr(b, name)).sum())
+    return d
+
+
+def drive_twins(torch, eager, graph, frames, intr, t0):
+    """The same frames into both drivers; after every chunk the states are
+    compared. Returns the largest difference of each field and the n of
+    the graph's state before and after each replay."""
+    worst, ns, K = {}, [], graph.chunk
+    for f, (ev, im) in enumerate(frames):
+        n0 = graph.state.n
+        eager(t0 + f, ev, im, [True], intr)
+        graph(t0 + f, ev, im, [True], intr)
+        if f % K == K - 1:
+            ns.append((n0, graph.state.n))
+            for k, v in state_diff(eager.state, graph.state).items():
+                worst[k] = max(worst.get(k, 0), v)
+    torch.cuda.synchronize()
+    return worst, ns
+
+
+def p2_host_us(torch, p2, reps=1000) -> float:
+    """P2's host issue cost: µs per launch over `reps` back-to-back no-op
+    launches on the host clock (see check_probes)."""
+    gt, _ = p2.make_tabs(True)
+    gt = gt.cuda()
+    p2.grid_probe_cuda("noop", gt, [])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        p2.grid_probe_cuda("noop", gt, [])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e6 / reps
+
+
+def timed_frames(torch, vo, frames, intr, t0) -> float:
+    """ms/frame of `frames` through `vo`, host clock, ending in a flush and
+    torch.cuda.synchronize()."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for f, (ev, im) in enumerate(frames):
+        vo(t0 + f, ev, im, [True], intr)
+    vo.flush()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / len(frames)
+
+
+def branchless_frames(torch, vo, frames, intr, t0) -> float:
+    """ms/frame of `frames` through the branchless initialized frame
+    (`frame_init`, the frame a replay holds) run eagerly on `vo`'s state,
+    one frame at a time with n read back after each (one wait a frame, as
+    the host-driven frame's eviction read); host clock, ending in
+    torch.cuda.synchronize(). `vo` runs at chunk=1."""
+    import dataclasses
+
+    st = vo.state
+    n, counter = (torch.tensor(x, device="cuda") for x in (st.n, st.counter))
+    view = dataclasses.replace(st, n=n, counter=counter)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for f, (ev, im) in enumerate(frames):
+        vo._vo_frame.frame_init(view, ev, im, intr)
+        st.n, st.counter = int(n), st.counter + 1
+        vo.tlist.append(t0 + f)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / len(frames)
+
+
+def check_twins(what, worst, captured, mode, layout, K):
+    """Graph against eager: bit for bit (the same kernels on the same
+    inputs; no float atomic on the path), and the capture holding each
+    kernel of the path as often as K eager frames launch it."""
+    enc, per = ENC_KERNEL[mode]
+    want = {enc: per * K, CORR_WRAPPER[layout]: K}
+    print(f"{what}: graph vs eager max diffs {worst}; captured launches "
+          f"{captured}")
+    if any(v != 0 for v in worst.values()):
+        fail(f"{what}: the graph's state differs from eager: {worst}")
+    if captured != want:
+        fail(f"{what}: captured launches {captured}, want {want}")
+
+
+def chunk_fused3(torch, p2, frames, intr, mode, summary):
+    """Phase 4b (1) for one input mode: the twins' 40 frames against each
+    other, then the timings in turns (EAGER_PAIRS pairs of the
+    host-driven and the branchless frame run eagerly, alternating which
+    runs first, and two graph turns) and the profiles of the graph and
+    the host-driven frame."""
+    from rampvo_tpu_torch.ops import corr_kernels as ck
+
+    K, warm = CHUNK_K, FRAMES
+    eager, graph = chunk_twins(torch, mode, "fused3", K, frames, intr, warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    for f, (ev, im) in enumerate(frames[:K]):       # the capture's chunk
+        eager(warm + f, ev, im, [True], intr)
+        graph(warm + f, ev, im, [True], intr)
+    torch.cuda.synchronize()
+    mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved(),
+            torch.cuda.max_memory_allocated())
+    worst, _ = drive_twins(torch, eager, graph, frames[K:], intr, warm + K)
+    captured = graph._vo_chunk.captured
+    check_twins(f"chunk {mode} fused3 K={K}", worst, captured, mode,
+                "fused3", K)
+    gib = 2.0 ** 30
+    print(f"chunk {mode}: memory allocated {mem0[0] / gib:.3f} -> "
+          f"{mem1[0] / gib:.3f} GiB, reserved {mem0[1] / gib:.3f} -> "
+          f"{mem1[1] / gib:.3f} GiB, peak {mem1[2] / gib:.3f} GiB over the "
+          "capture's chunk (warm-up copy of the state, capture, replay)")
+
+    # EAGER_PAIRS pairs of the eager frame's two forms, alternating which
+    # runs first, with two graph turns in the middle
+    turns = [k for i in range(EAGER_PAIRS) for k in (
+        ("eager", "branchless") if i % 2 == 0 else ("branchless", "eager"))]
+    turns[EAGER_PAIRS:EAGER_PAIRS] = ["graph", "graph"]
+    ms, slow, host, t0 = {}, {}, [], warm + FRAMES
+    for key in turns:
+        host.append(p2_host_us(torch, p2))
+        ck.corr_lattice_slow_edges()
+        run = branchless_frames if key == "branchless" else timed_frames
+        fr = frames if key == "graph" else frames[:EAGER_TURN]
+        ms.setdefault(key, []).append(run(
+            torch, graph if key == "graph" else eager, fr, intr, t0))
+        slow.setdefault(key, []).append(ck.corr_lattice_slow_edges())
+        t0 += len(fr)
+    busy_g, calls_g, share_g = profile_frames(torch, graph, frames[:K], intr,
+                                              min(ms["graph"]))
+    busy_e, calls_e, share_e = profile_frames(torch, eager, frames[:4], intr,
+                                              min(ms["eager"]))
+    enc, per = ENC_KERNEL[mode]
+    per_frame = {k: v / K for k, v in captured.items()}
+    stats = {k: quartiles(v) for k, v in ms.items()}
+    print(f"chunk {mode} fused3 {H}x{W} M={M} bf16, ms/frame in turns "
+          f"(eager and branchless {EAGER_TURN} frames a turn, graph "
+          f"{FRAMES}): " + " / ".join(f"{k} {x:.3f}" for k, x in zip(
+              turns, [ms[k][turns[:i].count(k)]
+                      for i, k in enumerate(turns)])))
+    print(f"chunk {mode}: quartiles (q1, median, q3) ms/frame " + "; ".join(
+        f"{k} {tuple(round(x, 3) for x in q)}" for k, q in stats.items())
+        + f"; branchless against host-driven eager median "
+        f"{100 * (stats['branchless'][1] / stats['eager'][1] - 1):+.1f}%, "
+        f"pairs the branchless turn won "
+        f"{sum(b < e for b, e in zip(ms['branchless'], ms['eager']))} of "
+        f"{EAGER_PAIRS}")
+    print(f"chunk {mode}: P2 host issue before each turn "
+          f"{' / '.join(f'{h:.2f}' for h in host)} us a launch; graph "
+          f"device busy {busy_g:.3f} ms/frame, {100 * share_g:.1f}% of the "
+          f"profiled replay's span ({calls_g:.0f} kernels/frame, one replay "
+          f"of {K}), eager {busy_e:.3f} ms/frame, {100 * share_e:.1f}% "
+          f"({calls_e:.0f} kernels/frame); captured launches a frame "
+          f"{per_frame}; K1 slow-path edges a turn {slow}")
+    if per_frame != {enc: per, "corr_lattice": 1}:
+        fail(f"chunk {mode}: kernels a frame {per_frame}")
+    summary.append(f"{mode} median eager {stats['eager'][1]:.3f} / eager "
+                   f"branchless {stats['branchless'][1]:.3f} / graph "
+                   f"{stats['graph'][1]:.3f} ms/frame, graph busy "
+                   f"{busy_g:.3f} ms/frame ({100 * share_g:.1f}%)")
+
+
+def quartiles(xs):
+    """(q1, median, q3) of a list, by linear interpolation."""
+    v = sorted(xs)
+
+    def q(p):
+        i = p * (len(v) - 1)
+        lo = int(i)
+        return v[lo] + (v[min(lo + 1, len(v) - 1)] - v[lo]) * (i - lo)
+
+    return q(0.25), q(0.5), q(0.75)
+
+
+def chunk_layout(torch, frames, intr, layout):
+    """Phase 4b (2): MultiScale under `layout`, three replays."""
+    K = CHUNK_K
+    eager, graph = chunk_twins(torch, "MultiScale", layout, K, frames, intr,
+                               FRAMES)
+    worst, _ = drive_twins(torch, eager, graph, frames[:3 * K], intr, FRAMES)
+    check_twins(f"chunk MultiScale {layout} K={K}, 3 replays", worst,
+                graph._vo_chunk.captured, "MultiScale", layout, K)
+
+
+def chunk_evictions(torch, frames, intr, K=4, warm=32, replays=4):
+    """Phase 4b (3): evicted and kept frames inside one replay, once n has
+    passed NI and the lattice rows wrap. A never-evicting driver warms
+    `warm` frames (n = 32 > NI = 25); the median of its keyframe flows
+    over the next K * `replays` frames, still never evicting, is the
+    threshold; the twins start from the warm state at that threshold."""
+    from rampvo_tpu_torch.vo import runtime as rt
+    from rampvo_tpu_torch.vo.graph import copy_state
+
+    base = bench_vo(torch, "MultiScale", "fused3", 1)
+    for f in range(warm):
+        base(f, *frames[f % len(frames)], [True], intr)
+    snap, tlist, flows = copy_state(base.state), list(base.tlist), []
+    nf = K * replays
+    run = [frames[f % len(frames)] for f in range(warm, warm + nf)]
+    for f, (ev, im) in enumerate(run):
+        base(warm + f, ev, im, [True], intr)
+        flows.append(float(rt._keyframe_flow(base.cfg, base.state)))
+    thresh = sorted(flows)[nf // 2]
+    del base
+    eager, graph = (bench_vo(torch, "MultiScale", "fused3", k, thresh)
+                    for k in (1, K))
+    for vo in (eager, graph):
+        copy_into(vo, snap, tlist)
+    worst, ns = drive_twins(torch, eager, graph, run, intr, warm)
+    check_twins(f"chunk eviction pass K={K} (KEYFRAME_THRESH={thresh:.4f})",
+                worst, graph._vo_chunk.captured, "MultiScale", "fused3", K)
+    evicted = [K - (b - a) for a, b in ns]
+    print(f"chunk eviction pass: keyframe flows without eviction "
+          f"{[round(x, 3) for x in flows]}, threshold their median "
+          f"{thresh:.4f}; n before/after each replay {ns} (NI "
+          f"{eager.cfg.NI}), evicted {evicted} of {K} inside the replays")
+    if not any(0 < e < K for e in evicted):
+        fail(f"chunk eviction pass: no replay both evicts and keeps frames "
+             f"({ns})")
+    if min(a for a, _ in ns) <= eager.cfg.NI:
+        fail(f"chunk eviction pass: n did not pass NI ({ns})")
+
+
+def run_chunk_path(torch, p2, frames, intr):
+    """The chunked path on the card (RampVO(chunk=K), vo/graph.py): the
+    initialized frames of a chunk as one CUDA-graph replay, held against
+    the eager per-frame driver from the same state, bit for bit.
+    (1) MultiScale and SingleScale under fused3 at chunk=8: 40 warm eager
+    frames, 40 frames into both twins, states compared after every
+    replay; then ms/frame in turns (10 alternating pairs of the eager
+    host-driven and branchless frames, two graph turns; quartiles of
+    each) beside P2's host µs a launch, the graph's
+    device-busy time, its share of the profiled replay's span and kernels
+    a frame (profiler over one replay), the launches the capture
+    holds (kernels a frame = replays x captured launches, as eager), the
+    graph pool's memory and K1's slow-path edges over the timed frames.
+    (2) MultiScale under fused2, fused4 and folded: one capture and three
+    replays each, against eager. (3) Chunk=4 from a never-evicting state
+    warmed past NI, at a threshold that evicts some frames of a replay and
+    keeps others, against eager. Each part runs
+    whatever an earlier one did; the phase fails at its end if any part
+    failed."""
+    import traceback
+
+    summary, failed = [], []
+    parts = [(f"{mode} fused3", lambda m=mode: chunk_fused3(
+        torch, p2, frames, intr, m, summary))
+        for mode in ("MultiScale", "SingleScale")]
+    parts += [(f"MultiScale {lay}", lambda lay=lay: chunk_layout(
+        torch, frames, intr, lay)) for lay in ("fused2", "fused4", "folded")]
+    parts.append(("evictions", lambda: chunk_evictions(torch, frames, intr)))
+    for name, part in parts:
+        try:
+            part()
+        except (Exception, SystemExit) as e:
+            traceback.print_exc()
+            failed.append(f"{name}: {e!r}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    if failed:
+        fail("chunk path: " + "; ".join(failed))
+    print("chunk path: " + "; ".join(summary))
 
 
 # ---------------------------------------------------------------------------
@@ -1791,6 +2125,8 @@ def main() -> int:
                     help="only compare the K7 build variants")
     ap.add_argument("--k2-variants", action="store_true",
                     help="only compare the K2 build variants")
+    ap.add_argument("--chunk-only", action="store_true",
+                    help="only the chunked path (CUDA-graph replay) phase")
     ap.add_argument("--ab", metavar="DIR",
                     help="only time K7, K2, K3 and the folded correlation "
                     "in the tree at DIR and in this one, in turns")
@@ -1861,6 +2197,14 @@ def main() -> int:
                 fail(f"{name}: a correlation kernel spills registers")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.chunk_only:
+        build.build_all(["corr_lattice", "lstm_fold", "lstm_carry_fold",
+                         "corr_lattice_cb", "corr_paired", "corr_bands",
+                         "probes"])
+        run_chunk_path(torch, p2, make_frames(torch, FRAMES, H, W, 1, "cuda"),
+                       torch.tensor([320.0, 320.0, W / 2, H / 2],
+                                    device="cuda"))
+        return 0
 
     k2, k1, k3, k7, k8, lay, probes = {}, {}, {}, {}, {}, {}, {}
     check_lstm_fold(torch, ek, k2)
@@ -1890,7 +2234,7 @@ def main() -> int:
         with FinishSpy(bk) as spy:
             counts, ms, vo = run_main_path(torch, counters, mode, frames,
                                            layout)
-            busy, calls = profile_frames(torch, vo, frames[:4], intr, ms)
+            busy, calls, _ = profile_frames(torch, vo, frames[:4], intr, ms)
         if layout == "folded":
             if spy.on_card:
                 fail(f"folded main path: the PyTorch finish ran {spy.on_card} "
@@ -1904,6 +2248,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     print("main paths: " + "; ".join(summary))
     run_eviction_pass(torch, frames)
+    run_chunk_path(torch, p2, frames, intr)
     run_cli_phase(torch, counters)
     del frames
     torch.cuda.empty_cache()

@@ -19,7 +19,6 @@ free, or none with `structure_only`.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..lie import ops as lops
 
@@ -140,7 +139,8 @@ def _assemble(r, w, Ji, Jj, Jz, i_slot, j_slot, k_slot, N: int, M: int):
 
     def onehot(s):
         s = torch.where((s >= 0) & (s < N), s, torch.full_like(s, N))
-        return F.one_hot(s.long(), Np1).to(r.dtype)
+        return (s[..., None] == torch.arange(Np1, device=s.device)).to(
+            r.dtype)
 
     U = (torch.einsum("ea,erx->erax", onehot(i_slot), Ji)
          + torch.einsum("ea,erx->erax", onehot(j_slot), Jj)).reshape(
@@ -182,7 +182,8 @@ def _assemble_cellwise(r, w, Ji, Jj, Jz, i_slot, j_slot, N: int, M: int,
 
     def onehot(s):
         s = torch.where((s >= 0) & (s < N), s, torch.full_like(s, N))
-        return F.one_hot(s.long(), Np1).to(r.dtype)
+        return (s[..., None] == torch.arange(Np1, device=s.device)).to(
+            r.dtype)
 
     si = i_slot.reshape(NC, Mp)[:, 0]
     sj = j_slot.reshape(NC, Mp)[:, 0]
@@ -218,6 +219,27 @@ def _assemble_cellwise(r, w, Ji, Jj, Jz, i_slot, j_slot, N: int, M: int,
     return B_full[: 6 * N, : 6 * N], Emat, C, v_full[: 6 * N], u, touched
 
 
+def _retract(poses, dX, t0, n_dyn):
+    """Poses of the window slots [t0, t0 + nup) retracted by dX [N, 6],
+    nup = n_dyn clipped to N and to the window. With tensor t0/n_dyn all N
+    slots are retracted and the live ones written (the rest into a dropped
+    row)."""
+    Np, N = poses.shape[0], dX.shape[0]
+    if isinstance(t0, int):
+        nup = max(0, min(n_dyn, N, Np - t0))
+        if nup == 0:
+            return poses
+        poses = poses.clone()
+        poses[t0:t0 + nup] = lops.se3_retr(poses[t0:t0 + nup], dX[:nup])
+        return poses
+    s = torch.arange(N, device=poses.device)
+    rows = (t0 + s).clamp(0, Np - 1)
+    live = s < torch.minimum(n_dyn, Np - t0)
+    out = torch.cat([poses, poses[:1]])
+    out[torch.where(live, rows, Np)] = lops.se3_retr(poses[rows], dX)
+    return out[:Np]
+
+
 def ba_infer(poses, cwin, intrinsics, targets, weights, lmbda, ii, jj, kk,
              t0: int, t1: int, *, N: int, M: int, lattice, win_rows,
              iterations: int = 2, valid=None):
@@ -225,9 +247,11 @@ def ba_infer(poses, cwin, intrinsics, targets, weights, lmbda, ii, jj, kk,
 
     poses [Np, 7] (window); cwin [M, 3] patch centers (x, y, inverse depth);
     intrinsics [4]; targets, weights [E, 2]; ii/jj [E] window frame indices;
-    kk [E] patch slots (clamped into [0, M)); t0/t1 host ints, poses
-    [t0, t1) free; lattice (NI, T, Mp); win_rows [M // Mp] lattice row of
-    each window frame (-1). Returns (poses', inverse depths [M])."""
+    kk [E] patch slots (clamped into [0, M)); t0/t1 both host ints or both
+    0-d int64 tensors (as the reference's traced scalars: nothing is read on
+    the host), poses [t0, t1) free; lattice (NI, T, Mp); win_rows [M // Mp]
+    lattice row of each window frame (-1). Returns (poses', inverse depths
+    [M])."""
     fx, fy, cx, cy = intrinsics.unbind(-1)
     n_dyn = t1 - t0
     Mp = lattice[2]
@@ -236,7 +260,6 @@ def ba_infer(poses, cwin, intrinsics, targets, weights, lmbda, ii, jj, kk,
     kk = kk.long().clamp(0, M - 1)
     i_slot = ii - t0
     j_slot = jj - t0
-    nup = max(0, min(n_dyn, N, poses.shape[0] - t0))  # retracted slots
     for _ in range(iterations):
         centers = cwin[kk]
         coords, Z, Ji, Jj, Jz = linearize_center_cells(
@@ -253,9 +276,7 @@ def ba_infer(poses, cwin, intrinsics, targets, weights, lmbda, ii, jj, kk,
         Bm, Em, C, v, u, touched = _assemble_cellwise(
             rg, w, Ji, Jj, Jz, i_slot, j_slot, N, M, lattice, win_rows)
         dX, dZ = _solve_schur(Bm, Em, C, v, u, lmbda, 1.0, 1e-4, n_dyn)
-        if nup > 0:
-            poses = poses.clone()
-            poses[t0:t0 + nup] = lops.se3_retr(poses[t0:t0 + nup], dX[:nup])
+        poses = _retract(poses, dX, t0, n_dyn)
         d = cwin[:, 2] + dZ
         d = torch.where(d > 20.0, torch.ones_like(d), d)
         d = torch.clamp(d, min=1e-4)

@@ -5,15 +5,16 @@ Flag-compatible with the JAX CLI:
   python -m rampvo_tpu_torch.cli.evaluate --weights W.pth
       --config_VO config_vo/x.yaml --config_eval config_net/x.json
       [--trials N] [--downsample_fact N] [--results_path out.json]
-      [--shard i:n] [--device cuda|cpu]
+      [--chunk K] [--shard i:n] [--device cuda|cpu]
 
 Consumes the same config_net/*.json and config_vo/*.yaml files and the
 same scene directory layout, and writes the same outputs (per-trial
 ATE/rotation JSON, stamped TUM trajectories, COLMAP export). Runs on the
-card unless `--device cpu` is given. Not ported yet, and refused rather
-than approximated: `--chunk` > 1 (CUDA-graph frame step), `--fleet`
-(multi-GPU scene fleet) and `use_pose_pred: true` (pose prediction);
-ROADMAP section 1 names each.
+card unless `--device cpu` is given. `--chunk K` runs the initialized
+frames K at a time (`RampVO(chunk=K)`: one CUDA-graph replay per K frames
+on the card, the same frames eagerly on the CPU). Not ported yet, and
+refused rather than approximated: `--fleet` (multi-GPU scene fleet) and
+`use_pose_pred: true` (pose prediction); ROADMAP section 1 names each.
 """
 
 from __future__ import annotations
@@ -78,9 +79,9 @@ def load_params(weights, input_mode: str) -> VONet:
 
 
 def run(config_VO: VOConfig, net: VONet, eval_cfg, data_list, seed: int = 0,
-        device="cuda"):
+        device="cuda", chunk: int = 1):
     """Run the VO over a scene's data list, then the 12 terminal updates
-    (ref: evaluate.py:232-260).
+    (ref: evaluate.py:232-260); `chunk` frames per flush (`RampVO`).
 
     Returns (poses [N, 7] xyz+xyzw camera-to-world, tstamps, points,
     colors)."""
@@ -90,7 +91,7 @@ def run(config_VO: VOConfig, net: VONet, eval_cfg, data_list, seed: int = 0,
     slam = RampVO(config_VO, net, input_mode=train_cfg["input_mode"],
                   num_event_bins=train_cfg["num_event_bins"], ht=H, wd=W,
                   event_bias=train_cfg.get("event_bias", True), seed=seed,
-                  device=dev)
+                  device=dev, chunk=chunk)
     for t, d in enumerate(device_prefetch(data_list, dev)):
         slam(t, d["events"], d["image"], d["mask"], d["intrinsics"])
     slam.final_refinement(12)
@@ -100,11 +101,13 @@ def run(config_VO: VOConfig, net: VONet, eval_cfg, data_list, seed: int = 0,
 
 
 def evaluate_sequence(config_VO, net, eval_cfg, data_list, traj_ref,
-                      img_timestamps, seed: int = 0, device="cuda"):
+                      img_timestamps, seed: int = 0, device="cuda",
+                      chunk: int = 1):
     """(ref: evaluate.py:263-312; the pose-prediction mode is not
     ported)"""
     poses, tstamps, points, colors = run(
-        config_VO, net, eval_cfg, data_list, seed=seed, device=device)
+        config_VO, net, eval_cfg, data_list, seed=seed, device=device,
+        chunk=chunk)
     used = img_timestamps[: len(poses)] if len(img_timestamps) >= len(poses) \
         else np.arange(len(poses), dtype=float)
     traj_est = eu.est_trajectory(poses, used)
@@ -139,7 +142,7 @@ def _scene_reference(scene: str, dataset_name: str):
 
 def evaluate(net, trials=1, downsample_fact=1, config_VO=None, eval_cfg=None,
              results_path=None, save_dir="trajectory_evaluation",
-             colmap_dir=None, device="cuda"):
+             colmap_dir=None, device="cuda", chunk: int = 1):
     """Per-scene evaluation loop (ref: evaluate.py:313-412). A crash inside
     one trial scores the ate=1000 sentinel instead of aborting the run
     (ref evaluate.py:308-310); options that are not ported raise first."""
@@ -178,7 +181,7 @@ def evaluate(net, trials=1, downsample_fact=1, config_VO=None, eval_cfg=None,
                     config_VO, net, eval_cfg, data_list, traj_ref,
                     used_ts[frame_indices] if len(frame_indices) else used_ts,
                     seed=j,  # trials differ through the stochastic pieces
-                    device=dev,
+                    device=dev, chunk=chunk,
                 )
             except Exception as e:
                 traceback.print_exc()
@@ -230,7 +233,9 @@ def main(argv=None):
     parser.add_argument("--trials", type=int, default=1)
     parser.add_argument("--downsample_fact", type=int, default=1)
     parser.add_argument("--chunk", type=int, default=1,
-                        help="frames per dispatch; only 1 is ported")
+                        help="frames per dispatch: the initialized frames "
+                        "run K at a time, one CUDA-graph replay per K "
+                        "frames on the card (1 = every frame eagerly)")
     parser.add_argument("--results_path", type=str, default=None)
     parser.add_argument("--fleet", type=int, default=0,
                         help="scene-shard worker processes; not ported")
@@ -242,8 +247,6 @@ def main(argv=None):
 
     if args.fleet:
         _unported("--fleet", "item 16, multi-GPU")
-    if args.chunk > 1:
-        _unported("--chunk > 1", "item 15, CUDA graph")
     config_VO = VOConfig.from_yaml(args.config_VO)
     with open(args.config_eval) as f:
         eval_cfg = json.load(f)
@@ -258,7 +261,7 @@ def main(argv=None):
         net=args.weights, trials=args.trials,
         downsample_fact=args.downsample_fact, config_VO=config_VO,
         eval_cfg=eval_cfg, results_path=args.results_path,
-        device=args.device,
+        device=args.device, chunk=args.chunk,
     )
     for k in results:
         print(k, results[k])

@@ -63,7 +63,7 @@ def flow_mag_edges(poses_i, poses_j, patches, intrinsics, beta: float = 0.5):
     """Blend of full and translation-only flow magnitude
     (ref projective_ops.py:108-118). Returns [E, P, P]."""
     ident_rot = torch.zeros_like(poses_j[..., 3:7])
-    ident_rot[..., 3] = 1.0
+    ident_rot[..., 3].fill_(1.0)
     coords0 = transform_edges(poses_i, poses_i, patches, intrinsics)
     coords1 = transform_edges(poses_i, poses_j, patches, intrinsics)
     Gij = lops.se3_mul(poses_j, lops.se3_inv(poses_i))

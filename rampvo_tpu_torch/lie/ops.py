@@ -33,7 +33,7 @@ def quat_mul(a, b):
 
 def quat_inv(q):
     """Conjugate (== inverse for unit quaternions)."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def _cross(a, b):

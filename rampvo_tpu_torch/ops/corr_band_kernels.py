@@ -76,7 +76,7 @@ def corr_bands_cuda(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int):
     return out.reshape(-1, 9, 2, D, D)
 
 
-def corr_lattice_bands(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
+def corr_lattice_bands(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n,
                        slotmap, r: int, lat):
     """`ops.corr_kernels.corr_lattice`'s arguments; returns the raw windows
     [NI*T*M, 9, 2, 8, 8] in the rings' dtype."""
@@ -145,7 +145,7 @@ def _bands_and_mask(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n, slotmap,
     return finish_bands(bands, u, v, vmask)
 
 
-def corr_lattice2(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
+def corr_lattice2(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n,
                   slotmap, r: int, lat):
     """Port of the reference's corr_lattice2: the two levels' correlation
     [E, 3, 3, 49] each, float32, in the reference window order (x, y)."""
@@ -155,7 +155,7 @@ def corr_lattice2(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
     return tuple(o.transpose(-1, -2).reshape(E, 3, 3, d * d) for o in (o1, o2))
 
 
-def corr_lattice2_stacked(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
+def corr_lattice2_stacked(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n,
                           slotmap, r: int, lat, folded: bool = False):
     """Port of the reference's corr_lattice2_stacked, in the rings' dtype:
     folded=False, the reference layout [E, 882] (level fastest, as

@@ -44,7 +44,7 @@ CAP = 8              # largest span of an edge's 9 floors per axis that the
                      # csrc/corr_train.cu)
 
 
-def cell_vmask(NI: int, T: int, r: int, n: int, cell_valid):
+def cell_vmask(NI: int, T: int, r: int, n, cell_valid):
     """[NI, T] cells the lattice correlation computes (mirror of the
     reference's _cell_vmask): live cell, host and target inside
     [0, n), target inside the last NI + r - 2 frames."""
@@ -58,7 +58,7 @@ def cell_vmask(NI: int, T: int, r: int, n: int, cell_valid):
             & (j_tgt >= n - NTGT))
 
 
-def cell_tables(NI: int, T: int, r: int, n: int, cell_valid, slotmap,
+def cell_tables(NI: int, T: int, r: int, n, cell_valid, slotmap,
                 MEM: int):
     """Per-cell [NI*T, 2] int32 (target feature slot, or -1 for a dead cell;
     host gmap slot), lattice order. Slots are clipped like the reference's
@@ -331,15 +331,15 @@ def corr_lattice_slow_edges(reset: bool = True, defines=()) -> int:
     return n.value
 
 
-def corr_lattice(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
+def corr_lattice(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n,
                  slotmap, r: int, lat):
     """Two-level lattice correlation for the VO update.
 
     gmap_r [MEM, M, 3, 3, 128]; fmap1_r [MEM, H, W, 128] and fmap2_r
     [MEM, H/4, W/4, 128] (the 1/4-res frame features and their 4x pool);
     u, v [NI*T, M*9] level-1 reprojected patch pixels; cell_valid [NI, T];
-    n live keyframes; slotmap [L]; r = PATCH_LIFETIME; lat = (NI, T, M).
-    Returns [NI*T*M, 882] in the rings' dtype."""
+    n live keyframes (a host int or a 0-d device tensor); slotmap [L];
+    r = PATCH_LIFETIME; lat = (NI, T, M). Returns [NI*T*M, 882] in the rings' dtype."""
     NI, T, M = lat
     cells = cell_tables(NI, T, r, n, cell_valid, slotmap, gmap_r.shape[0])
     args = (gmap_r, fmap1_r, fmap2_r, u.contiguous(), v.contiguous(), cells, M)
@@ -361,13 +361,14 @@ EB = 4     # patches per block of a group (csrc/corr_lattice_cb.cu: one
            # per warp; chip_smoke.py --k6-splits times the choices)
 
 
-def cell_tables_a(NI: int, T: int, r: int, n: int, cell_valid, slotmap,
+def cell_tables_a(NI: int, T: int, r: int, n, cell_valid, slotmap,
                   MEM: int, tb: int = TB):
     """Per-(target, t-band) tables of K6 (mirror of the reference's
-    _cell_tables_a). Target a = 0..NTGT-1 is frame j = n - NTGT + a
-    (NTGT = NI + r - 2); its live offsets are t in [tlo_a, thi_a] (host
-    i = j - t + r - 1 in the last NI frames and >= 0), cut into bands of
-    `tb`. Returns
+    _cell_tables_a), built on the device: `n` a host int or a 0-d device
+    tensor, and nothing is read on the host. Target a = 0..NTGT-1 is frame
+    j = n - NTGT + a (NTGT = NI + r - 2); its live offsets are t in
+    [tlo_a, thi_a] (host i = j - t + r - 1 in the last NI frames and
+    >= 0), cut into bands of `tb`. Returns
 
       groups [NTGT*NTB, 6] int32: (a, band, target slot, NTGT if the group
         is empty, lo, hi), lo..hi relative to the band (lo = 1, hi = 0
@@ -385,7 +386,8 @@ def cell_tables_a(NI: int, T: int, r: int, n: int, cell_valid, slotmap,
     a = torch.arange(NTGT, device=dev)
     j = n - NTGT + a
     tlo_a = (a - NI + 2).clamp(min=0)
-    thi_a = (a + 1 + min(0, n - NI)).clamp(max=T - 1)
+    short = min(0, n - NI) if isinstance(n, int) else (n - NI).clamp(max=0)
+    thi_a = (a + 1 + short).clamp(max=T - 1)
     a2 = a.repeat_interleave(NTB)
     j2 = j.repeat_interleave(NTB)
     band = torch.arange(NTB, device=dev).repeat(NTGT)
@@ -416,9 +418,11 @@ def cell_tables_a(NI: int, T: int, r: int, n: int, cell_valid, slotmap,
 
     tc = torch.arange(tb, device=dev)[None, :]
     walk = (tc >= groups[:, 4:5]) & (tc <= groups[:, 5:6])   # [NB, tb]
-    at = (groups[:, 0:1] * Tp + groups[:, 1:2] * tb + tc)[walk]
+    at = groups[:, 0:1] * Tp + groups[:, 1:2] * tb + tc
     walked = torch.zeros(NI * T, dtype=torch.int32, device=dev)
-    walked[c.reshape(-1)[at]] = 1
+    walked.index_add_(0, c.reshape(-1)[at.reshape(-1)],
+                      walk.reshape(-1).to(torch.int32))
+    walked.clamp_(max=1)
     return (groups.to(torch.int32).contiguous(),
             cells_a.reshape(NTGT * Tp, 2).to(torch.int32).contiguous(),
             walked)
@@ -488,7 +492,7 @@ def corr_lattice_cb_cuda(gmap_r, fmap1_r, fmap2_r, u, v, tables, M: int,
     return out
 
 
-def corr_lattice_cb(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
+def corr_lattice_cb(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n,
                     slotmap, r: int, lat, tb: int = TB):
     """`corr_lattice`'s function and contract ([NI*T*M, 882], the
     reference layout) through K6's target-major decomposition

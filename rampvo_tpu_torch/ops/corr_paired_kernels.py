@@ -43,7 +43,7 @@ def corr_lattice_paired_cuda(gmap_r, fmap1_r, fmap2_r, u, v, cells, M: int):
     return out
 
 
-def corr_lattice_paired(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n: int,
+def corr_lattice_paired(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n,
                         slotmap, r: int, lat):
     """`ops.corr_kernels.corr_lattice`'s arguments; returns the paired
     layout [NI*T*M, 1152] in the rings' dtype."""

@@ -2,10 +2,27 @@
 reference ramp/Ramp_vo.py).
 
 One call per frame: encode -> patch select/extract -> commit -> motion-probe
-gate -> edge append -> (init burst | update + keyframe). The state's
-tensors are updated in place. Three per-frame decisions are read back on
-the host, as the reference does: the probe gate (pre-init only), the init
-burst and the keyframe eviction. Everything else stays on the device.
+gate -> edge append -> (init burst | update + keyframe). Every step writes
+into the state's own tensors (in-place indexing and `copy_`) and rebinds no
+tensor field, so a frame run eagerly and one replayed from a CUDA graph
+act on the same storage.
+
+Two forms of the frame:
+- the host-driven frame (`make_vo_frame`'s `vo_frame`; every frame of
+  `RampVO(chunk=1)` and every frame before initialization): `n` and
+  `counter` are host ints and three decisions are read back on the host,
+  as the reference does: the probe gate (pre-init only), the init burst
+  and the keyframe eviction;
+- the branchless initialized frame (`vo_frame.frame_init`, the port of the
+  JAX frame with traced scalars): `n` and `counter` are 0-d int64 device
+  tensors, both eviction outcomes are computed and one is selected on the
+  device, and nothing is read on the host. `vo/graph.py` captures K of
+  them into one CUDA graph (`make_vo_frames_chunk`, `RampVO(chunk=K)`).
+  Initialized n never decreases below INIT_FRAMES, so a run that reaches
+  this form stays in it. `chunk=1` keeps the host-driven form: run
+  eagerly one frame at a time, the branchless frame issues ~200 more
+  launches a frame and was not shown to be as fast (chip_smoke.py's
+  chunk phase times the two in alternating pairs; PERF.md §6).
 
 Per update the correlation runs through the kernel `cfg.CORR_LAYOUT` picks
 (vo/config.py CORR_LAYOUTS: K1 `corr_lattice`, K6 `corr_lattice_cb`, K5
@@ -80,10 +97,45 @@ def _clip(x, lo, hi):
     return x.clamp(lo, hi)
 
 
+def _at_least(x, lo: int):
+    return max(x, lo) if isinstance(x, int) else x.clamp(min=lo)
+
+
+def _take(x, i):
+    """x[i] along dim 0 for an int or an index tensor. A 0-d index tensor
+    is gathered on the device: Python indexing reads a 0-d tensor index on
+    the host, which a CUDA graph cannot hold."""
+    if isinstance(i, torch.Tensor) and i.dim() == 0:
+        return x[i.reshape(1)][0]
+    return x[i]
+
+
+def _put(x, i, v):
+    """x[i] = v along dim 0, in place, for an int or a 0-d index tensor."""
+    if isinstance(i, torch.Tensor):
+        x.index_copy_(0, i.reshape(1),
+                      v.to(x.dtype).reshape((1,) + x.shape[1:]))
+    else:
+        x[i] = v
+
+
+def _assign(dst, src):
+    """Copy a tree (dicts and lists) of tensors into one of the same
+    structure, in place."""
+    if isinstance(dst, dict):
+        for key in dst:
+            _assign(dst[key], src[key])
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            _assign(a, b)
+    else:
+        dst.copy_(src)
+
+
 def _gather_pose(state: VOState, logical):
     """Pose of a logical keyframe (clamped gather through l2g)."""
-    g = state.l2g[_clip(logical, 0, state.l2g.shape[0] - 1)]
-    return state.poses[g.clamp(0, state.poses.shape[0] - 1)]
+    g = _take(state.l2g, _clip(logical, 0, state.l2g.shape[0] - 1))
+    return _take(state.poses, g.clamp(0, state.poses.shape[0] - 1))
 
 
 def _patch_rows(state: VOState, kk_logical, M: int):
@@ -106,8 +158,9 @@ def _patches_rows(state: VOState, rows, P: int = 3):
 
 
 def _motion_model_pose(cfg: VOConfig, state: VOState):
-    """Damped-linear extrapolation (Ramp_vo.py:356-366)."""
-    if state.n <= 1:
+    """Damped-linear extrapolation (Ramp_vo.py:356-366). A device `n` is
+    an initialized one, so n > 1."""
+    if isinstance(state.n, int) and state.n <= 1:
         return lops.se3_identity((), device=state.poses.device)
     P1 = _gather_pose(state, state.n - 1)
     P2 = _gather_pose(state, state.n - 2)
@@ -118,11 +171,13 @@ def _motion_model_pose(cfg: VOConfig, state: VOState):
 def _commit(cfg: VOConfig, state: VOState, fmap, gmap, imap_vec,
             patches_new, clr, intrinsics, rand_d):
     """Write the new frame at global row g = counter (Ramp_vo.py:344-383).
-    `rand_d` [M]: the pre-initialization depths. Does not advance n."""
+    `rand_d` [M]: the pre-initialization depths. Does not advance n; with
+    host `n`/`counter` the counter is rebound, a device one is advanced in
+    place."""
     M, L, MEM, F = cfg.M, cfg.BUFFER_SIZE, cfg.MEM, cfg.MAX_FRAMES
     g, n = state.counter, state.n
     dev = state.poses.device
-    state.poses[g] = _motion_model_pose(cfg, state)
+    _put(state.poses, g, _motion_model_pose(cfg, state))
 
     # depth init: random before initialization, then the median of the
     # last 3 frames over the full [3, M, P*P] (depth replicated per pixel)
@@ -135,37 +190,39 @@ def _commit(cfg: VOConfig, state: VOState, fmap, gmap, imap_vec,
         d0 = d0.expand(M)
     else:
         d0 = rand_d.to(device=dev, dtype=torch.float32)
-    state.pat_x[g] = patches_new[0, :, 0].reshape(M * PP)
-    state.pat_y[g] = patches_new[0, :, 1].reshape(M * PP)
-    state.pat_d[g] = d0
-    state.pat_cx[g] = patches_new[0, :, 0, P // 2, P // 2]
-    state.pat_cy[g] = patches_new[0, :, 1, P // 2, P // 2]
-    state.colors[g] = clr[0]
+    _put(state.pat_x, g, patches_new[0, :, 0].reshape(M * PP))
+    _put(state.pat_y, g, patches_new[0, :, 1].reshape(M * PP))
+    _put(state.pat_d, g, d0)
+    _put(state.pat_cx, g, patches_new[0, :, 0, P // 2, P // 2])
+    _put(state.pat_cy, g, patches_new[0, :, 1, P // 2, P // 2])
+    _put(state.colors, g, clr[0])
 
     # free the ring slots of frames that aged out of the feature window
-    lim = max(n - cfg.FEATURE_WINDOW, 0)
-    if lim:
-        old = state.slotmap[:lim]
-        freed = torch.zeros(MEM, dtype=torch.int32, device=dev)
-        freed.index_put_((old.clamp(min=0),), (old >= 0).int(),
-                         accumulate=True)
-        state.slot_free |= freed > 0
-        state.slotmap[:lim] = -1
+    # (slot MEM takes the writes of the logical frames that hold none)
+    old = torch.arange(L, device=dev) < n - cfg.FEATURE_WINDOW
+    sm = state.slotmap
+    freed = torch.zeros(MEM + 1, dtype=torch.int32, device=dev)
+    freed.index_put_((torch.where(old & (sm >= 0), sm, MEM),),
+                     torch.ones_like(sm, dtype=torch.int32), accumulate=True)
+    state.slot_free |= freed[:MEM] > 0
+    sm.masked_fill_(old, -1)
 
     # allocate the first free slot for the new frame and fill the rings
     s = torch.argmax(state.slot_free.int())
-    state.slot_free[s] = False
-    state.slotmap[n] = s
-    fdt = state.imap_r.dtype
-    state.imap_r[s] = imap_vec[0].to(fdt)
-    state.gmap_r[s] = gmap[0].to(fdt)
-    state.fmap1_r[s] = fmap[0].to(fdt)
-    state.fmap2_r[s] = avg_pool2d(fmap, 4)[0].to(fdt)
+    state.slot_free.index_fill_(0, s.reshape(1), False)
+    _put(state.slotmap, n, s)
+    _put(state.imap_r, s, imap_vec[0])
+    _put(state.gmap_r, s, gmap[0])
+    _put(state.fmap1_r, s, fmap[0])
+    _put(state.fmap2_r, s, avg_pool2d(fmap, 4)[0])
 
     # provisional logical registration (kept only if the frame is)
-    state.l2g[n] = g
-    state.counter = g + 1
-    state.intrinsics = intrinsics.to(torch.float32) / 4.0
+    _put(state.l2g, n, g)
+    if isinstance(g, int):
+        state.counter = g + 1
+    else:
+        g.add_(1)
+    state.intrinsics.copy_(intrinsics.to(torch.float32) / 4.0)
 
 
 def _quat_project(Gij, px, py, d, intrinsics):
@@ -319,6 +376,26 @@ def _append_edges(cfg: VOConfig, state: VOState):
         state.last_weight[row, t] = 0.0
 
 
+def _append_edges_dev(cfg: VOConfig, state: VOState):
+    """`_append_edges` with a device `n`: the host loop as masked writes
+    (ref vo/runtime.py:508-541). The forward cells t = r + k, k < r-1, are
+    distinct, so each write touches its own cell."""
+    r, NI = cfg.PATCH_LIFETIME, cfg.NI
+    dev = state.net.device
+    nf = state.n - 1
+    rf = torch.remainder(nf, NI).reshape(1)
+    for x in (state.cell_valid, state.net, state.last_weight):
+        x.index_fill_(0, rf, 0)
+    tb = torch.arange(r, device=dev)
+    state.cell_valid[rf, :r] = ((nf + tb - (r - 1)) >= 0)[None]
+    k = torch.arange(r - 1, device=dev)
+    hosts = nf - 1 - k
+    rows, tf, ok = torch.remainder(hosts, NI), k + r, hosts >= 0
+    state.cell_valid[rows, tf] = state.cell_valid[rows, tf] | ok
+    for x in (state.net, state.last_weight):
+        x[rows, tf] = torch.where(ok[:, None, None], 0.0, x[rows, tf])
+
+
 def _update(cfg: VOConfig, update_fn, state: VOState):
     """One VO update: reproject -> corr -> update net -> BA
     (Ramp_vo.py:276-310)."""
@@ -335,7 +412,7 @@ def _update(cfg: VOConfig, update_fn, state: VOState):
     weight = torch.where(valid[:, None], weight, torch.zeros_like(weight))
 
     # BA over the trailing window of PW logical frames starting at base
-    base = max(n - PW, 0)
+    base = _at_least(n - PW, 0)
     k = n - base                                   # live window frames
     L, F = state.l2g.shape[0], state.poses.shape[0]
     win_log = base + torch.arange(PW, device=dev)
@@ -345,7 +422,8 @@ def _update(cfg: VOConfig, update_fn, state: VOState):
     posew = state.poses[win_gc]
     cwin = torch.stack([state.pat_cx[win_gc], state.pat_cy[win_gc],
                         state.pat_d[win_gc]], dim=-1).reshape(PW * M, 3)
-    t0 = max(n - cfg.OPTIMIZATION_WINDOW if state.initialized else 1, 1)
+    t0 = _at_least(n - cfg.OPTIMIZATION_WINDOW if state.initialized else 1,
+                   1)
     wrow = torch.remainder(win_log, NI)
     held = host_of_row(wrow, n, NI) == win_log
     win_rows = torch.where(held & win_ok, wrow, torch.full_like(wrow, -1))
@@ -355,43 +433,26 @@ def _update(cfg: VOConfig, update_fn, state: VOState):
         N=cfg.OPTIMIZATION_WINDOW, M=PW * M, lattice=lattice,
         win_rows=win_rows, iterations=cfg.BA_ITERS, valid=valid)
 
-    state.poses[win_g[:k]] = posew2[:k]
-    state.pat_d[win_g[:k]] = dwin2.reshape(PW, M)[:k]
-    state.net = net.reshape(state.net.shape)
-    state.last_weight = weight.reshape(state.last_weight.shape)
+    # write back the k live window frames; with a device k, window rows
+    # past it repeat row k - 1 (the same value written twice)
+    live = (slice(0, k) if isinstance(k, int)
+            else torch.minimum(torch.arange(PW, device=dev), k - 1))
+    state.poses[win_g[live]] = posew2[live]
+    state.pat_d[win_g[live]] = dwin2.reshape(PW, M)[live]
+    state.net.copy_(net.reshape(state.net.shape))
+    state.last_weight.copy_(weight.reshape(state.last_weight.shape))
 
 
 def _keyframe(cfg: VOConfig, state: VOState):
     """Evict a redundant keyframe and age out old edges
     (Ramp_vo.py:237-274). The eviction decision is read on the host."""
-    M, L, MEM, NI, T = cfg.M, cfg.BUFFER_SIZE, cfg.MEM, cfg.NI, cfg.T
-    r = cfg.PATCH_LIFETIME
+    L, MEM, NI = cfg.BUFFER_SIZE, cfg.MEM, cfg.NI
     F = state.poses.shape[0]
     n = state.n
     dev = state.poses.device
-    i = n - cfg.KEYFRAME_INDEX - 1
-    j = n - cfg.KEYFRAME_INDEX + 1
-
-    def cell_mean(a, b):
-        row, t = a % NI, b - a + (r - 1)
-        if not (0 <= t < T) or n - 1 - (n - 1 - row) % NI != a:
-            return torch.zeros((), device=dev)
-        pa = _gather_pose(state, a)
-        pb = _gather_pose(state, b)
-        rows = _patch_rows(state, a * M + torch.arange(M, device=dev),
-                           M).clamp(0, F * M - 1)
-        flow = flow_mag_edges(pa.expand(M, 7), pb.expand(M, 7),
-                              _patches_rows(state, rows), state.intrinsics,
-                              beta=0.5).mean()
-        return torch.where(state.cell_valid[row, t], flow,
-                           torch.zeros_like(flow))
-
-    m = 0.5 * (cell_mean(i, j) + cell_mean(j, i))
-    evict = bool(m < cfg.KEYFRAME_THRESH)
+    evict = bool(_keyframe_flow(cfg, state) < cfg.KEYFRAME_THRESH)
     k = n - cfg.KEYFRAME_INDEX
 
-    i_row = torch.arange(NI, device=dev)[:, None]
-    tt = torch.arange(T, device=dev)[None, :]
     if evict:
         # trajectory delta of the removed frame (Ramp_vo.py:245-249)
         t0g = state.l2g[_clip(k - 1, 0, L - 1)]
@@ -401,24 +462,8 @@ def _keyframe(cfg: VOConfig, state: VOState):
         state.delta_parent[t1g] = t0g
         state.delta_dP[t1g] = dP
 
-        # remove frame k's edges and shift the numbering
-        # (Ramp_vo.py:251-256): new cell (i', t') pulls old cell
-        # (i mod NI, j - i + r - 1), i = i' + (i' >= k), j = j' + (j' >= k)
         n_new = n - 1
-        i_new = host_of_row(i_row, n_new, NI) + 0 * tt
-        j_new = i_new + tt - (r - 1)
-        i_old = i_new + (i_new >= k).long()
-        j_old = j_new + (j_new >= k).long()
-        t_old = j_old - i_old + (r - 1)
-        okc = ((t_old >= 0) & (t_old < T) & (i_old >= 0)
-               & (i_old != k) & (j_old != k))
-        src = (torch.remainder(i_old, NI) * T + t_old.clamp(0, T - 1)).reshape(-1)
-        state.cell_valid = state.cell_valid.reshape(NI * T)[src].reshape(
-            NI, T) & okc
-        state.net = state.net.reshape(NI * T, M, -1)[src].reshape(
-            state.net.shape)
-        state.last_weight = state.last_weight.reshape(NI * T, M, 2)[
-            src].reshape(state.last_weight.shape)
+        _remap_cells(cfg, state, n_new, k, True)
 
         # map shifts (replace the reference's buffer moves :258-268)
         freed = state.slotmap[_clip(k, 0, L - 1)]
@@ -427,12 +472,106 @@ def _keyframe(cfg: VOConfig, state: VOState):
         state.slotmap[k:] = torch.roll(state.slotmap, -1)[k:]
     else:
         n_new = n
-        state.cell_valid &= (host_of_row(i_row, n, NI) >= 0)
+        state.cell_valid &= (host_of_row(torch.arange(NI, device=dev), n,
+                                         NI) >= 0)[:, None]
 
     # age out edges whose host left the removal window (:273-274)
     host_row = host_of_row(torch.arange(NI, device=dev), n_new, NI)
     state.cell_valid &= (host_row >= n_new - cfg.REMOVAL_WINDOW)[:, None]
     state.n = n_new
+
+
+def _remap_cells(cfg: VOConfig, state: VOState, n_new, k, evict):
+    """Renumber the lattice after frame k's removal, in place
+    (Ramp_vo.py:251-256): new cell (i', t') pulls old cell
+    (i mod NI, j - i + r - 1), i = i' + (i' >= k), j = j' + (j' >= k), and
+    the cells of frame k's edges die. `evict` is a host True or a device
+    bool; where it is false the remap is the identity."""
+    NI, T, r = cfg.NI, cfg.T, cfg.PATCH_LIFETIME
+    dev = state.net.device
+    sh = evict.long() if isinstance(evict, torch.Tensor) else 1
+    i_new = (host_of_row(torch.arange(NI, device=dev)[:, None], n_new, NI)
+             + 0 * torch.arange(T, device=dev)[None, :])
+    j_new = i_new + torch.arange(T, device=dev)[None, :] - (r - 1)
+    i_old = i_new + sh * (i_new >= k).long()
+    j_old = j_new + sh * (j_new >= k).long()
+    t_old = j_old - i_old + (r - 1)
+    gone = ((i_old == k) | (j_old == k)) & evict
+    okc = (t_old >= 0) & (t_old < T) & (i_old >= 0) & ~gone
+    src = (torch.remainder(i_old, NI) * T + t_old.clamp(0, T - 1)).reshape(-1)
+    state.cell_valid.copy_(state.cell_valid.reshape(NI * T)[src].reshape(
+        NI, T) & okc)
+    for x in (state.net, state.last_weight):
+        x.copy_(x.reshape((NI * T,) + x.shape[2:])[src].reshape(x.shape))
+
+
+def _cell_flow(cfg: VOConfig, state: VOState, a, d: int):
+    """Mean flow magnitude (beta 0.5) of the lattice cell from logical
+    frame a to a + d, 0 where that cell is not live; `a` and `state.n`
+    host ints or device scalars."""
+    M, NI, T, r = cfg.M, cfg.NI, cfg.T, cfg.PATCH_LIFETIME
+    F = state.poses.shape[0]
+    n = state.n
+    dev = state.poses.device
+    row, t = a % NI, d + r - 1
+    held = n - 1 - (n - 1 - row) % NI == a      # row `row` holds frame a
+    if not 0 <= t < T or held is False:
+        return torch.zeros((), device=dev)
+    rows = _patch_rows(state, a * M + torch.arange(M, device=dev),
+                       M).clamp(0, F * M - 1)
+    flow = flow_mag_edges(
+        _gather_pose(state, a).expand(M, 7),
+        _gather_pose(state, a + d).expand(M, 7), _patches_rows(state, rows),
+        state.intrinsics, beta=0.5).mean()
+    return torch.where(_take(state.cell_valid[:, t], row) & held, flow,
+                       torch.zeros_like(flow))
+
+
+def _keyframe_flow(cfg: VOConfig, state: VOState):
+    """The flow the eviction compares with KEYFRAME_THRESH
+    (Ramp_vo.py:237-243): the mean of the two cells between the candidate
+    frame's neighbours n-KEYFRAME_INDEX-1 and n-KEYFRAME_INDEX+1."""
+    i = state.n - cfg.KEYFRAME_INDEX - 1
+    return 0.5 * (_cell_flow(cfg, state, i, 2)
+                  + _cell_flow(cfg, state, i + 2, -2))
+
+
+def _keyframe_dev(cfg: VOConfig, state: VOState):
+    """`_keyframe` with a device `n`: both outcomes computed and the
+    eviction selected on the device (ref vo/runtime.py:636-723). The cell
+    remap runs on every frame; without an eviction its indices are the
+    identity."""
+    L, MEM, NI = cfg.BUFFER_SIZE, cfg.MEM, cfg.NI
+    F = state.poses.shape[0]
+    n = state.n
+    dev = state.poses.device
+    evict = _keyframe_flow(cfg, state) < cfg.KEYFRAME_THRESH
+    k = n - cfg.KEYFRAME_INDEX
+
+    # trajectory delta of the removed frame (Ramp_vo.py:245-249)
+    t0g = _take(state.l2g, _clip(k - 1, 0, L - 1))
+    t1g = _take(state.l2g, _clip(k, 0, L - 1))
+    dP = lops.se3_mul(_take(state.poses, t1g.clamp(0, F - 1)),
+                      lops.se3_inv(_take(state.poses, t0g.clamp(0, F - 1))))
+    t1 = t1g.clamp(0, F - 1).reshape(1)
+    state.delta_parent[t1] = torch.where(evict, t0g, state.delta_parent[t1])
+    state.delta_dP[t1] = torch.where(evict, dP, state.delta_dP[t1])
+
+    n_new = n - evict.long()
+    _remap_cells(cfg, state, n_new, k, evict)
+
+    # map shifts
+    freed = _take(state.slotmap, _clip(k, 0, L - 1))
+    fs = freed.clamp(0, MEM - 1).reshape(1)
+    state.slot_free[fs] = state.slot_free[fs] | (evict & (freed >= 0))
+    shift = evict & (torch.arange(L, device=dev) >= k)
+    for x in (state.l2g, state.slotmap):
+        x.copy_(torch.where(shift, torch.roll(x, -1), x))
+
+    # age out edges whose host left the removal window (:273-274)
+    host_row = host_of_row(torch.arange(NI, device=dev), n_new, NI)
+    state.cell_valid &= (host_row >= n_new - cfg.REMOVAL_WINDOW)[:, None]
+    state.n.copy_(n_new)
 
 
 # ---------------------------------------------------------------------------
@@ -470,10 +609,15 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
     """Build the per-frame step.
 
     vo_frame(state, events [1, H, W, Ce], images [1, H, W, 3], mask [1]
-    (host bool, >= 1 true), intrinsics [4], rand_d [M] or None) -> state.
-    `rand_d` overrides the pre-initialization depth draw (tests feed the
-    reference's numbers); otherwise a generator seeded with `seed` draws
-    them. `vonet` must live on `device`.
+    (host bool, >= 1 true), intrinsics [4], rand_d [M] or None) -> state:
+    the host-driven frame. `rand_d` overrides the pre-initialization depth
+    draw (tests feed the reference's numbers); otherwise a generator
+    seeded with `seed` draws them. `vonet` must live on `device`.
+
+    vo_frame.frame_init(state, events, images, intrinsics) -> state: the
+    branchless frame of an initialized state whose `n` and `counter` are
+    0-d int64 tensors on the state's device (mask true); it reads nothing
+    on the host, so a CUDA graph can hold it (vo/graph.py).
     """
     dev = resolve_device(device)
     net_h = _half(cfg, vonet)
@@ -499,14 +643,24 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
 
     @torch.no_grad()
     def encode_fn(events, images, mask, enc_state, heads=True):
-        """(fmap/4, imap/4, new carry); `heads=False` advances the carry
-        only (events-only frames) and returns (None, None, carry)."""
+        """Advance the carry `enc_state` in place; returns (fmap/4, imap/4),
+        or (None, None) with `heads=False` (events-only frames)."""
         dt = next(net_h.parameters()).dtype
         fmap, imap, enc2 = encode(events.to(dt), images.to(dt), mask,
                                   enc_state, heads)
+        _assign(enc_state, enc2)
         if not heads:
-            return None, None, enc2
-        return fmap / 4.0, imap / 4.0, enc2
+            return None, None
+        return fmap / 4.0, imap / 4.0
+
+    def patches(events, images, fmap, imap):
+        """Patch selection on `events` [1, H, W, Ce] and extraction: (gmap,
+        imap vectors, patches, colors) of the new frame."""
+        coords = select_coords_event_bias(events, cfg.M, nms_rad=11)
+        h4, w4 = fmap.shape[1], fmap.shape[2]
+        disps = torch.ones((1, h4, w4), dtype=torch.float32, device=dev)
+        return extract_patches(fmap.float(), imap.float(), images[:1], disps,
+                               coords, P=3)
 
     @torch.no_grad()
     def frame_post(state, events, images, mask, intrinsics, fmap, imap,
@@ -514,11 +668,8 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
         M = cfg.M
         mk = np.asarray(mask).reshape(-1).astype(bool)
         sup = int(np.argmax(mk)) if mk.any() else len(mk) - 1
-        coords = select_coords_event_bias(events[sup:sup + 1], M, nms_rad=11)
-        h4, w4 = fmap.shape[1], fmap.shape[2]
-        disps = torch.ones((1, h4, w4), dtype=torch.float32, device=dev)
-        gmap, ictx, patches_new, clr = extract_patches(
-            fmap.float(), imap.float(), images[:1], disps, coords, P=3)
+        gmap, ictx, patches_new, clr = patches(events[sup:sup + 1], images,
+                                               fmap, imap)
         if rand_d is None:
             rand_d = torch.rand(M, generator=gen)
         _commit(cfg, state, fmap, gmap, ictx, patches_new, clr, intrinsics,
@@ -552,26 +703,43 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
         images = torch.as_tensor(images, device=dev).float()
         intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
                                      device=dev)
-        fmap, imap, state.enc = encode_fn(events, images, mask, state.enc)
+        fmap, imap = encode_fn(events, images, mask, state.enc)
         return frame_post(state, events, images, mask, intrinsics, fmap, imap,
                           rand_d)
 
+    one = np.ones(1, dtype=bool)
+
+    @torch.no_grad()
+    def frame_init(state, events, images, intrinsics):
+        """The initialized frame with device scalars `n` and `counter`
+        (ref vo/runtime.py:838-931 with a true mask): frame_post's commit,
+        append, update and keyframe in their branchless forms."""
+        fmap, imap = encode_fn(events, images, one, state.enc)
+        gmap, ictx, patches_new, clr = patches(events, images, fmap, imap)
+        _commit(cfg, state, fmap, gmap, ictx, patches_new, clr, intrinsics,
+                None)
+        state.n.add_(1)
+        _append_edges_dev(cfg, state)
+        _update(cfg, update_fn, state)
+        _keyframe_dev(cfg, state)
+        return state
+
     vo_frame.encode_fn = encode_fn
+    vo_frame.frame_init = frame_init
     return vo_frame
 
 
 def make_encode_only(encode_fn):
-    """Events-only frames: advance the encoder state, no VO
+    """Events-only frames: advance the encoder state in place, no VO
     (Ramp_vo.py:338-342). Takes a frame step's `encode_fn`; the whole
     recurrent step runs (for SingleScale the carried LSTMs as well as the
     super-state), the heads, whose output nobody reads, do not."""
 
     def encode_only(state, events, images, mask):
         dev = state.poses.device
-        _, _, state.enc = encode_fn(
-            torch.as_tensor(events, device=dev).float(),
-            torch.as_tensor(images, device=dev).float(), mask, state.enc,
-            heads=False)
+        encode_fn(torch.as_tensor(events, device=dev).float(),
+                  torch.as_tensor(images, device=dev).float(), mask,
+                  state.enc, heads=False)
         return state
 
     return encode_only
@@ -604,11 +772,22 @@ class RampVO:
     loaded into it, or `models.vonet.init_weights`); its `input_mode`
     picks the encoder, and `input_mode`, when given, must agree with it.
     `event_bias=False` (random or gradient-biased patch selection) is not
-    ported (ROADMAP): every shipped config sets event_bias."""
+    ported (ROADMAP): every shipped config sets event_bias.
+
+    `chunk` K > 1 buffers frames and flushes them as the JAX driver does
+    (ref vo/runtime.py:1085-1124): a full buffer of an initialized state
+    runs as one chunk (`vo.graph.make_vo_frames_chunk`: one CUDA-graph
+    replay on the card), a partial buffer or frames before initialization
+    frame by frame. Events-only frames, `final_refinement`, `terminate`
+    and `point_cloud` flush first; call `flush()` before reading `state`.
+    K = 1 runs every frame eagerly as it comes."""
 
     def __init__(self, cfg: VOConfig, vonet: VONet, input_mode=None,
                  num_event_bins: int = 5, ht: int = 480, wd: int = 640,
-                 event_bias: bool = True, seed: int = 0, device="cuda"):
+                 event_bias: bool = True, seed: int = 0, device="cuda",
+                 chunk: int = 1):
+        from .graph import make_vo_frames_chunk  # graph.py imports this module
+
         input_mode = input_mode or vonet.input_mode
         if input_mode != vonet.input_mode:
             raise ValueError(f"input_mode {input_mode} but the network is "
@@ -631,6 +810,23 @@ class RampVO:
             device=self.device)
         self._vo_frame = make_vo_frame(cfg, self.vonet, self.device, seed)
         self._encode_only = make_encode_only(self._vo_frame.encode_fn)
+        self.chunk = max(int(chunk), 1)
+        self._buf: list = []
+        self._vo_chunk = (
+            make_vo_frames_chunk(cfg, self.vonet, self.chunk, self.device,
+                                 frame=self._vo_frame)
+            if self.chunk > 1 else None)
+
+    def flush(self):
+        """Run the buffered frames (chunked mode)."""
+        buf, self._buf = self._buf, []
+        if len(buf) == self.chunk and self.state.initialized:
+            stack = [torch.stack([torch.as_tensor(b[i], device=self.device)
+                                  for b in buf]) for i in (0, 1)]
+            self._vo_chunk(self.state, *stack, buf[0][3])
+            return
+        for events, image, mask, intrinsics, rand_d in buf:
+            self._vo_frame(self.state, events, image, mask, intrinsics, rand_d)
 
     def __call__(self, tstamp, events, image, mask, intrinsics, rand_d=None):
         """events [T, H, W, C] (T == 1), image [1, H, W, 3] normalized, mask
@@ -638,22 +834,28 @@ class RampVO:
         pre-initialization depth draw."""
         mask = np.asarray(mask).reshape(-1).astype(bool)
         if not mask.any():
-            self.state = self._encode_only(self.state, events, image, mask)
+            self.flush()
+            self._encode_only(self.state, events, image, mask)
             return
         self.tlist.append(tstamp)
-        self.state = self._vo_frame(self.state, events, image, mask,
-                                    intrinsics, rand_d)
+        if self.chunk > 1:
+            self._buf.append((events, image, mask, intrinsics, rand_d))
+            if len(self._buf) == self.chunk:
+                self.flush()
+            return
+        self._vo_frame(self.state, events, image, mask, intrinsics, rand_d)
 
     def final_refinement(self, iters: int = 12):
         """`iters` terminal update iterations (evaluate.py:254-255)."""
+        self.flush()
         if iters > 0:
-            self.state = make_final_updates(self.cfg, self.vonet,
-                                            iters)(self.state)
+            make_final_updates(self.cfg, self.vonet, iters)(self.state)
 
     def point_cloud(self):
         """World-space patch-center point cloud and colors of every
         committed frame for export (Ramp_vo.py:308-310,
         evaluate.py:256-258): numpy [counter * M, 3] each."""
+        self.flush()
         st = self.state
         c = st.counter
         poses = st.poses[:c]                       # world-to-camera
@@ -670,6 +872,7 @@ class RampVO:
         """Interpolate removed/skipped frames through the delta chain and
         return (poses [N, 7] camera-to-world, tstamps [N])
         (Ramp_vo.py:162-173)."""
+        self.flush()
         st = self.state
         n, counter = st.n, st.counter
         l2g = st.l2g[:n].cpu().numpy()

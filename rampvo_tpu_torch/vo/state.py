@@ -5,9 +5,12 @@ Frame-global buffers are indexed by an immutable global frame id; `l2g`
 maps logical keyframe -> global id and `slotmap` logical keyframe ->
 feature-ring slot, with `slot_free` as the free list. Edges live on the
 fixed-shape lattice [NI hosts, T offsets, M patches]: edge (host row i,
-t, m) links host frame i to target i + t - (r-1). The host-side scalars
-(n, counter, initialized) are plain Python values: the driver decides the
-per-frame branches on the host. The runtime updates the tensors in place.
+t, m) links host frame i to target i + t - (r-1). The scalars (n,
+counter, initialized) are plain Python values, and the host-driven frame
+decides its branches on them; the branchless initialized frame
+(vo/runtime.py) runs on a view of the state whose n and counter are 0-d
+int64 device tensors. The runtime updates the tensors in place and never
+rebinds a tensor field.
 
 Feature rings hold the 1/4-res fmap and its 4x pool unpadded
 [MEM, h, w, 128]: the correlation kernel masks out-of-bounds taps itself.
@@ -59,14 +62,14 @@ class VOState:
     hw4: tuple = (0, 0)        # (h, w) of the level-1 rings
 
 
-def host_of_row(i_row, n: int, NI: int):
+def host_of_row(i_row, n, NI: int):
     """Logical host frame held by lattice row i_row with n keyframes live:
     the i in (n-1-NI, n-1] with i == i_row (mod NI); negative when the row
     is unoccupied. Floor-mod, as the reference's jnp.mod."""
     return n - 1 - torch.remainder(n - 1 - i_row, NI)
 
 
-def edge_table(cfg: VOConfig, n: int, cell_valid):
+def edge_table(cfg: VOConfig, n, cell_valid):
     """Flat (ii, jj, kk, valid) view of the lattice, row-major, with invalid
     rows sanitized to 0."""
     NI, T, M = cfg.NI, cfg.T, cfg.M

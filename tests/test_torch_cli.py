@@ -270,14 +270,51 @@ def test_unported_options_raise(scene):
     cfg["data_loader"]["test"]["use_pose_pred"] = True
     with pytest.raises(NotImplementedError, match="item 12"):
         pev.evaluate(net, eval_cfg=cfg, device="cpu")
-    for argv, item in ((["--fleet", "2"], "item 16"),
-                       (["--chunk", "4"], "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            pev.main(argv)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        pev.main(["--fleet", "2"])
     assert pev.parse_shard("1:3", list("abcdefg")) == ["b", "e"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pev.evaluate(net, eval_cfg=eval_cfg(scene))
+
+
+def test_chunk_writes_the_same_trajectory(tmp_path, monkeypatch):
+    """`evaluate --chunk 4 --device cpu` on a synthetic scene whose
+    voxels are nearly all frames (2500 events a voxel: 13 frames, one
+    events-only voxel) runs one chunk of initialized frames and writes the
+    trajectory `--chunk 1` writes, bit for bit."""
+    import rampvo_tpu_torch.vo.graph as graph
+
+    scene_dir = str(tmp_path / "P002")
+    synthetic.write_scene(scene_dir, n_frames=14, H=60, W=80, seed=2)
+    cfg = eval_cfg(scene_dir)
+    cfg["data_loader"]["train"]["args"]["num_events_selected"] = 2500
+    (tmp_path / "eval.json").write_text(json.dumps(cfg))
+    (tmp_path / "vo.yaml").write_text(
+        "".join(f"{k}: {v}\n" for k, v in SMALL_VO.items()))
+    weights = str(tmp_path / "w.pth")
+    _write_pth(weights, "MultiScale", seed=4)
+    make, chunks = graph.make_vo_frames_chunk, []
+
+    def counted(*a, **kw):
+        run = make(*a, **kw)
+        return lambda *b: chunks.append(b[0].n) or run(*b)
+
+    monkeypatch.setattr(graph, "make_vo_frames_chunk", counted)
+    trajs = []
+    for k in (1, 4):
+        (tmp_path / f"c{k}").mkdir()
+        monkeypatch.chdir(tmp_path / f"c{k}")
+        pev.main(["--weights", weights, "--config_VO",
+                  str(tmp_path / "vo.yaml"), "--config_eval",
+                  str(tmp_path / "eval.json"), "--chunk", str(k),
+                  "--device", "cpu"])
+        trajs.append(np.loadtxt(tmp_path / f"c{k}" / "trajectory_evaluation"
+                                / "full_data" / "trial_0" / "P002"
+                                / "stamped_traj_estimate.txt"))
+    assert len(chunks) == 1
+    assert trajs[0].shape[0] >= 12
+    np.testing.assert_array_equal(trajs[1], trajs[0])
 
 
 def test_cli_module_runs(tmp_path):
