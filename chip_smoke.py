@@ -9,6 +9,9 @@
     python3 chip_smoke.py --k7-variants    # only K7's build variants, timed
     python3 chip_smoke.py --k2-variants    # only K2's build variants, timed
     python3 chip_smoke.py --chunk-only     # only the chunked path (4b)
+    python3 chip_smoke.py --pose-only      # only pose prediction (5b)
+    python3 chip_smoke.py --selection-only # only patch selection (5c)
+    python3 chip_smoke.py --native-only    # only the native builders (5d)
     python3 chip_smoke.py --ab DIR         # K7, K2, K3 and the folded
                                            # correlation here and in the
                                            # tree at DIR, in turns
@@ -49,13 +52,24 @@ turns (`run_chunk_path`); (5) the evaluation CLI's run -> evaluate_sequence
 in-memory 480x640 scene of 24 frames and 6 events-only frames, with the
 motion probe off and launch counts that show every frame tracked (the
 card's machine has no h5py, so the scene files are not written and read;
-the file readers are covered by the CPU tests); (6) the training main
-path: 3 optimizer steps of the MultiScale recipe
-(config_net/MultiScale_TartanEvent.json) at 480x640 through the training
-CLI's loop on an in-memory 30-voxel window of the same scene, with
-launch counts, a checkpoint round trip, s/step, peak memory and a
-profiled step. Prints one {"kernels": [...]} line (ten kernels) and,
-last, {"ok": true, "device": {...}}. Any failure exits non-zero. Needs
+the file readers are covered by the CPU tests); (5b) pose prediction:
+predict_future_pose on the card against the CPU from one small state,
+then evaluate_sequence(use_pose_pred=True) on a 24-frame in-memory
+480x640 scene (12 frames tracked, 12 predicted), launch counts, ATE and
+ms per prediction split into host and card time (`run_pose_phase`);
+(5c) patch selection without event bias: RampVO(event_bias=False) with
+GRADIENT_BIAS true and false, MultiScale eager and chunk=8 twins held
+bit for bit on the same selection draws and timed, SingleScale eager
+(`run_selection_phase`); (5d) the native event builders, built by g++,
+bit for bit against numpy on a 400k-event 480x640 stream and timed
+(`run_native_phase`); (6) the training main path: 3 optimizer steps of
+the MultiScale recipe (config_net/MultiScale_TartanEvent.json) at
+480x640 through the training CLI's loop on an in-memory 30-voxel window
+of the same scene, with launch counts, a checkpoint round trip, s/step,
+peak memory and a profiled step, then one step of the recipe without
+event bias (gradient_bias true, `run_selection_training`). Prints one
+{"kernels": [...]} line (ten kernels) and, last, {"ok": true,
+"device": {...}}. Any failure exits non-zero. Needs
 CUDA and the repository around it; imports nothing of JAX or rampvo_tpu.
 """
 
@@ -1456,19 +1470,22 @@ CORR_WRAPPER = {"fused3": "corr_lattice", "fused4": "corr_lattice_cb",
                 "fused2": "corr_lattice_paired", "folded": "corr_folded_cuda"}
 
 
-def bench_vo(torch, mode, layout, K, thresh=0.0):
+def bench_vo(torch, mode, layout, K, thresh=0.0, event_bias=True,
+             gradient=False):
     """A RampVO at chunk=K on bench.py's VOConfig (KEYFRAME_THRESH
-    `thresh`) at 480x640, M=96, bf16, CORR_LAYOUT `layout`, seeded
-    weights."""
+    `thresh`, GRADIENT_BIAS `gradient`) at 480x640, M=96, bf16,
+    CORR_LAYOUT `layout`, seeded weights, patches selected by event
+    density or, without `event_bias`, at random or by image gradient."""
     from rampvo_tpu_torch.models.vonet import VONet, init_weights
     from rampvo_tpu_torch.vo import RampVO, VOConfig
 
     cfg = VOConfig(BUFFER_SIZE=512, MAX_FRAMES=512, PATCHES_PER_FRAME=M,
                    MIXED_PRECISION=True, PROBE_THRESH=-1.0,
-                   KEYFRAME_THRESH=thresh, CORR_LAYOUT=layout)
+                   KEYFRAME_THRESH=thresh, CORR_LAYOUT=layout,
+                   GRADIENT_BIAS=gradient)
     net = init_weights(VONet(mode), torch.Generator().manual_seed(0))
     return RampVO(cfg, net, input_mode=mode, ht=H, wd=W, device="cuda",
-                  seed=0, chunk=K)
+                  seed=0, chunk=K, event_bias=event_bias)
 
 
 def copy_into(vo, state, tlist):
@@ -1873,6 +1890,403 @@ def run_cli_phase(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: pose prediction
+# ---------------------------------------------------------------------------
+
+POSE_FRAMES = 24          # t_to_pred = 12: initialized, then 12 predicted
+
+
+class PoseTimer:
+    """Times each RampVO.predict_future_pose call on the host clock, ending
+    in torch.cuda.synchronize(), and inside it the part on the card: the
+    reprojection and the flat BA (vo/pose_prediction.py's transform_edges
+    and ba_infer, synchronized before and after). The rest of the call is
+    the host's: edge table copies, tracks, splines, bookkeeping."""
+
+    def __init__(self, torch):
+        from rampvo_tpu_torch.vo import pose_prediction as pp
+        from rampvo_tpu_torch.vo import runtime as rt
+
+        self.torch, self.pp, self.cls = torch, pp, rt.RampVO
+        self.total, self.card, self.stage = [], [], 0.0
+
+    def _timed(self, fn):
+        def run(*a, **kw):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.stage += time.perf_counter() - t
+            return out
+        return run
+
+    def __enter__(self):
+        pp, cls = self.pp, self.cls
+        self.saved = (pp.transform_edges, pp.ba_infer,
+                      cls.predict_future_pose)
+        pp.transform_edges = self._timed(self.saved[0])
+        pp.ba_infer = self._timed(self.saved[1])
+        predict = self.saved[2]
+
+        def predict_timed(vo, *a, **kw):
+            self.stage = 0.0
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = predict(vo, *a, **kw)
+            self.torch.cuda.synchronize()
+            self.total.append(1e3 * (time.perf_counter() - t))
+            self.card.append(1e3 * self.stage)
+            return out
+
+        cls.predict_future_pose = predict_timed
+        return self
+
+    def __exit__(self, *exc):
+        (self.pp.transform_edges, self.pp.ba_infer,
+         self.cls.predict_future_pose) = self.saved
+
+
+def check_small_pose_prediction(torch):
+    """predict_future_pose on the card and on the CPU from one state: a
+    small f32 VO (64x96, M=8, 12 frames) runs on the CPU, its state is
+    copied into a RampVO on the card, and both predict a 3-step horizon.
+    The predicted poses agree within 1e-4 and the bookkeeping is
+    identical. The virtual frame's edges carry the splines' weights of
+    1e-9 (as the reference's), so BA barely moves the predicted pose: the
+    flat BA's whole output (every window pose and inverse depth) is held
+    too, within 1e-4 (poses) and 1e-3 (inverse depths): float32
+    Gauss-Newton in other summation orders, TF32 off."""
+    from rampvo_tpu_torch.models.vonet import VONet, init_weights
+    from rampvo_tpu_torch.vo import RampVO, VOConfig
+    from rampvo_tpu_torch.vo import pose_prediction as pp
+
+    ht, wd = 64, 96
+    cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=5,
+                   OPTIMIZATION_WINDOW=4, PATCH_LIFETIME=3, KEYFRAME_INDEX=2,
+                   MIXED_PRECISION=False, PROBE_THRESH=-1.0, MAX_FRAMES=64,
+                   MEM=16, KEYFRAME_THRESH=0.0)
+    net = init_weights(VONet(), torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        net.update.d[1].weight.mul_(0.1)
+    vos = {d: RampVO(cfg, net, ht=ht, wd=wd, device=d, seed=1)
+           for d in ("cpu", "cuda")}
+    intr = torch.tensor([50.0, 50.0, wd / 2, ht / 2])
+    for f, (ev, im) in enumerate(make_frames(torch, 12, ht, wd, 7, "cpu")):
+        vos["cpu"](f, ev, im, [True], intr)
+    copy_into(vos["cuda"], vos["cpu"].state, vos["cpu"].tlist)
+    ba_out, ba = {"cpu": [], "cuda": []}, pp.ba_infer
+
+    def recorded(*a, **kw):
+        out = ba(*a, **kw)
+        ba_out[a[0].device.type].append([x.cpu() for x in out])
+        return out
+
+    worst, pp.ba_infer = 0.0, recorded
+    try:
+        for k in range(1, 4):
+            out = {d: vo.predict_future_pose(k, 11 + k, 12, deg=2,
+                                             frequency=1.0)
+                   for d, vo in vos.items()}
+            worst = max(worst, float(abs(out["cuda"] - out["cpu"]).max()))
+    finally:
+        pp.ba_infer = ba
+    dba = [max(float((x[i] - y[i]).abs().max())
+               for x, y in zip(ba_out["cuda"], ba_out["cpu"]))
+           for i in (0, 1)]
+    a, b = vos["cpu"].state, vos["cuda"].state
+    same = (a.n == b.n == 15 and a.counter == b.counter
+            and torch.equal(a.l2g, b.l2g.cpu()) and len(ba_out["cuda"]) == 3)
+    print(f"small pose prediction 64x96 M=8 f32, 3-step horizon from one "
+          f"state: cuda vs cpu worst predicted-pose difference {worst:.3e} "
+          f"(tolerance 1e-4); flat BA output, window poses {dba[0]:.3e} "
+          f"(1e-4), inverse depths {dba[1]:.3e} (1e-3); bookkeeping "
+          f"{'identical' if same else 'DIFFERS'}")
+    if not same or not worst <= 1e-4 or not dba[0] <= 1e-4 \
+            or not dba[1] <= 1e-3:
+        fail("small pose prediction: cuda differs from cpu")
+
+
+def run_pose_phase(torch, counters, card):
+    """The pose-prediction mode end to end on the card:
+    cli.evaluate.evaluate_sequence(use_pose_pred=True) with
+    config_vo/default.yaml (PROBE_THRESH=-1), MultiScale under fused3, 96
+    patches, bf16, on the in-memory 480x640 scene of the CLI phase cut to
+    24 frames without events-only voxels: the VO runs frames 0-11
+    (initialized at frame 8), final_refinement(12), predicts frames 12-23
+    (`predict_future_pose`, one flat BA each), final_refinement(12). K1
+    launches 12 (init burst) + 4 (one update a later frame) + 2 x 12
+    (refinements) times, K2 3 times an ingested frame, nothing else; the
+    ATE is finite and not the 1000 sentinel; the trajectory holds 24
+    poses. Prints ms per predict_future_pose split into host and card
+    time (`PoseTimer`)."""
+    import dataclasses
+
+    import numpy as np
+
+    from rampvo_tpu_torch.cli import eval_utils as eu
+    from rampvo_tpu_torch.cli import evaluate as ev
+    from rampvo_tpu_torch.models.vonet import VONet, init_weights
+    from rampvo_tpu_torch.vo import VOConfig
+
+    check_small_pose_prediction(torch)
+    data, ref_poses, stamps = synthetic_scene(n_frames=POSE_FRAMES,
+                                              every=POSE_FRAMES + 1)
+    traj_ref = eu.traj_from_xyzw(ref_poses[:, :3], ref_poses[:, 3:], stamps)
+    cfg = dataclasses.replace(VOConfig.from_yaml(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "config_vo",
+        "default.yaml")), PROBE_THRESH=-1.0)
+    eval_cfg = {"data_loader": {"train": {"args": {
+        "input_mode": "MultiScale", "event_bias": True,
+        "num_event_bins": 5}}}}
+    net = init_weights(VONet(), torch.Generator().manual_seed(1))
+    t_pred = traj_ref.num_poses // 2
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    with PoseTimer(torch) as timer:
+        ate, rot, traj_est, _, _ = ev.evaluate_sequence(
+            cfg, net, eval_cfg, data, traj_ref, stamps, use_pose_pred=True,
+            seed=0)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    counts = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update({"K1": 12 + (t_pred - 8) + 2 * 12, "K2": 3 * t_pred})
+    n_est = traj_est.positions_xyz.shape[0]
+    print(f"pose-prediction phase 480x640 MultiScale fused3 bf16 "
+          f"(config_vo/default.yaml, PROBE_THRESH=-1): {POSE_FRAMES} frames, "
+          f"t_to_pred {t_pred}, {len(timer.total)} predictions, ate "
+          f"{ate:.5f}, rot {[round(r, 4) for r in rot]}, {n_est} poses, "
+          f"{sec:.2f} s; launches {counts}")
+    if counts != want:
+        fail(f"pose-prediction phase: launch counts {counts}, want {want}")
+    if not (np.isfinite(ate) and ate != 1000.0) or n_est != POSE_FRAMES \
+            or len(timer.total) != POSE_FRAMES - t_pred:
+        fail(f"pose-prediction phase: ate={ate}, {n_est} poses, "
+             f"{len(timer.total)} predictions")
+    tot, dev = np.asarray(timer.total), np.asarray(timer.card)
+    host = tot - dev
+    print(f"pose prediction on {card}: ms per predict_future_pose (median, "
+          f"min, max over {len(tot)} calls; the first builds the tracks "
+          f"and splines) total {np.median(tot):.3f} / {tot.min():.3f} / "
+          f"{tot.max():.3f}, host (edge table copies, tracks, splines) "
+          f"{np.median(host):.3f} / {host.min():.3f} / {host.max():.3f}, "
+          f"card (transform_edges + flat BA, synchronized) "
+          f"{np.median(dev):.3f} / {dev.min():.3f} / {dev.max():.3f}; "
+          f"first call total {tot[0]:.3f} (host {host[0]:.3f})")
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: random and gradient-biased patch selection
+# ---------------------------------------------------------------------------
+
+SEL_WARM, SEL_CHUNKS = 10, 3          # eager warm frames, twin replays
+
+
+def selection_twins(torch, p2, mode, gradient, frames, intr, card, summary):
+    """RampVO(event_bias=False) at chunk=1 and its twin at chunk=8 from one
+    state (GRADIENT_BIAS `gradient`, fused3, never evicting): the eager
+    driver runs SEL_WARM frames with its own draws, its state is copied
+    into the twin, then SEL_CHUNKS chunks of 8 frames go into both with
+    the same selection draws, drawn on the card for each chunk from a
+    seeded CUDA generator. After each chunk the states must be equal bit
+    for bit and the capture hold each kernel as often as 8 eager frames
+    launch it. The chunks after the capture's are timed, eager and graph
+    in alternating order, with P2's host µs a launch before each."""
+    from rampvo_tpu_torch.models.vonet import selection_draws
+
+    K = CHUNK_K
+    eager, graph = (bench_vo(torch, mode, "fused3", k, event_bias=False,
+                             gradient=gradient) for k in (1, K))
+    for f in range(SEL_WARM):
+        eager(f, *frames[f], [True], intr)
+    copy_into(graph, eager.state, eager.tlist)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst, ms, host, t0 = {}, {"eager": [], "graph": []}, [], SEL_WARM
+    for c in range(SEL_CHUNKS):
+        fr = frames[SEL_WARM + c * K:SEL_WARM + (c + 1) * K]
+        x, y = selection_draws(gradient, K, M, H, W, gen)
+        order = ("eager", "graph") if c % 2 else ("graph", "eager")
+        for key in order:
+            vo = eager if key == "eager" else graph
+            host.append(p2_host_us(torch, p2))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for k, (ev, im) in enumerate(fr):
+                vo(t0 + k, ev, im, [True], intr,
+                   sel_draws=(x[k:k + 1], y[k:k + 1]))
+            vo.flush()
+            torch.cuda.synchronize()
+            if c > 0:
+                ms[key].append((time.perf_counter() - t) * 1e3 / K)
+        t0 += K
+        for k, v in state_diff(eager.state, graph.state).items():
+            worst[k] = max(worst.get(k, 0), v)
+    what = (f"selection {mode} {'gradient' if gradient else 'random'} "
+            f"chunk={K}")
+    check_twins(what, worst, graph._vo_chunk.captured, mode, "fused3", K)
+    if eager.state.n != SEL_WARM + SEL_CHUNKS * K:
+        fail(f"{what}: n {eager.state.n}")
+    med = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"{what} on {card}: graph == eager bit for bit over "
+          f"{SEL_CHUNKS} replays; ms/frame eager {ms['eager']} graph "
+          f"{ms['graph']} (chunks after the capture's); P2 host issue "
+          f"{' / '.join(f'{h:.2f}' for h in host)} us a launch")
+    summary.append(f"{mode} {'gradient' if gradient else 'random'}: eager "
+                   f"{med['eager']:.3f} / graph {med['graph']:.3f} ms/frame "
+                   f"(mean of {len(ms['graph'])} timed chunks)")
+
+
+def selection_singlescale(torch, counters, frames, intr, card, summary):
+    """RampVO(event_bias=False), SingleScale, random selection, eager: 24
+    frames with the launch counters set to 0 just before and read just
+    after (K3 once a frame, K1 12 + 16 times, nothing else); finite
+    poses; the median steady ms/frame."""
+    vo = bench_vo(torch, "SingleScale", "fused3", 1, event_bias=False)
+    for c in counters.values():
+        c.launches = 0
+    times = []
+    for f, (ev, im) in enumerate(frames[:24]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vo(f, ev, im, [True], intr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    counts = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update({"K3": 24, "K1": 12 + 16})
+    st = vo.state
+    if counts != want or st.n != 24 \
+            or not bool(torch.isfinite(st.poses[:st.counter]).all()):
+        fail(f"selection SingleScale random: launches {counts}, want "
+             f"{want}, n {st.n}")
+    ms = sorted(times[10:])[len(times[10:]) // 2]
+    print(f"selection SingleScale random eager on {card}: 24 frames, median "
+          f"steady frame {ms:.3f} ms (frames 10..); launches {counts}")
+    summary.append(f"SingleScale random: eager {ms:.3f} ms/frame")
+
+
+def run_selection_phase(torch, p2, counters, frames, intr, card):
+    """Random and gradient-biased patch selection (event_bias=False) on the
+    card at 480x640, M=96, bf16: MultiScale eager and chunk=8 twins with
+    GRADIENT_BIAS true and false (`selection_twins`), SingleScale eager
+    (`selection_singlescale`). Each part runs whatever an earlier one
+    did; the phase fails at its end if any part failed."""
+    import traceback
+
+    summary, failed = [], []
+    parts = [(f"MultiScale gradient={g}", lambda g=g: selection_twins(
+        torch, p2, "MultiScale", g, frames, intr, card, summary))
+        for g in (True, False)]
+    parts.append(("SingleScale", lambda: selection_singlescale(
+        torch, counters, frames, intr, card, summary)))
+    for name, part in parts:
+        try:
+            part()
+        except (Exception, SystemExit) as e:
+            traceback.print_exc()
+            failed.append(f"{name}: {e!r}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    if failed:
+        fail("selection phase: " + "; ".join(failed))
+    print(f"selection phase on {card}: "
+          + "; ".join(summary))
+
+
+def run_selection_training(torch, counters, card):
+    """One full-width training step without event bias (the MultiScale
+    recipe with event_bias false and gradient_bias true: patches ranked by
+    image gradient) through cli.train.TrainLoop on the in-memory window,
+    poses free: K7 and K8 launch once per unrolled step (18), the loss
+    and every gradient are finite, and gradients are not all zero."""
+    from rampvo_tpu_torch.cli import train as ct
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(root, "config_net", "MultiScale_TartanEvent.json")
+    with open(cfg_path) as f:
+        config = json.load(f)
+    config["data_loader"]["train"]["args"].update(event_bias=False,
+                                                  gradient_bias=True)
+    argv = ["--config_path", cfg_path, "--structure_only_steps", "0",
+            "--name", "chip_smoke_sel", "--print_every", "1"]
+    loop = ct.TrainLoop(ct.parse_args(argv), config,
+                        InMemoryWindows(train_window()))
+    if loop.fwd.event_bias or not loop.fwd.gradient_bias:
+        fail("selection training: the config's selection was not read")
+    for c in counters.values():
+        c.launches = 0
+    loop.run(n_steps=1)
+    torch.cuda.synchronize()
+    counts = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update({"K7": 18, "K8": 18})
+    (hist,) = loop.history
+    grads = [p.grad for p in loop.net.parameters() if p.grad is not None]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    gsum = sum(float(g.abs().sum()) for g in grads)
+    print(f"selection training step 480x640 (event_bias false, gradient_bias "
+          f"true) on {card}: loss {hist['loss']}, {hist['seconds']:.3f} s, "
+          f"{len(grads)} gradients finite={finite}, |g|_1 {gsum:.4e}; "
+          f"launches {counts}")
+    if counts != want or not finite or not gsum > 0 or not all(
+            v == v and abs(v) < 1e30 for v in hist.values()):
+        fail(f"selection training: launches {counts} (want {want}), "
+             f"finite={finite}, |g|_1={gsum}, metrics {hist}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the native event-stack builder (host C++)
+# ---------------------------------------------------------------------------
+
+def run_native_phase(card):
+    """data/native.py on this machine's host: g++ builds
+    csrc/event_ops.cpp (the phase fails if it cannot); on an in-memory
+    stream of 400k events at 480x640 (sorted timestamps, random pixels
+    and polarities) `event_stack` and `voxel_grid` must equal the numpy
+    versions bit for bit; each is timed against numpy (median of 5, in
+    turns). The evaluation fleet is not driven here: its workers read
+    scene files, which need h5py, and this machine has none."""
+    import numpy as np
+
+    from rampvo_tpu_torch.data import native
+    from rampvo_tpu_torch.data import representations as rep
+    from rampvo_tpu_torch.data.events import Events
+
+    t = time.perf_counter()
+    if native.library() is None:
+        fail("native builders: the library did not build")
+    build_s = time.perf_counter() - t
+    rng = np.random.RandomState(0)
+    n = 400_000
+    ev = Events(x=rng.randint(0, W, n), y=rng.randint(0, H, n),
+                t=np.sort(rng.randint(0, 50_000, n)), p=rng.randint(0, 2, n),
+                width=W, height=H)
+    out = []
+    for name, fast, ref in (("event_stack", native.event_stack,
+                             rep.stack_numpy),
+                            ("voxel_grid", native.voxel_grid,
+                             rep.voxel_numpy)):
+        a, b = fast(ev, 5), ref(ev, 5)
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or a.tobytes() != b.tobytes():
+            fail(f"native {name} differs from numpy")
+        tn, tr = [], []
+        for _ in range(5):
+            for fn, ts in ((fast, tn), (ref, tr)):
+                t = time.perf_counter()
+                fn(ev, 5)
+                ts.append((time.perf_counter() - t) * 1e3)
+        out.append(f"{name} native {sorted(tn)[2]:.3f} ms, numpy "
+                   f"{sorted(tr)[2]:.3f} ms (bit for bit equal)")
+    print(f"native builders on {card} host, {n} events at {H}x{W}, 5 bins "
+          f"(g++ build and load {build_s:.2f} s): " + "; ".join(out))
+    print("evaluation fleet: not driven on the card (its workers read "
+          "scene files, which need h5py; this machine has none); "
+          "tests/test_torch_fleet.py drives it on the CPU")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: training
 # ---------------------------------------------------------------------------
 
@@ -1945,7 +2359,7 @@ def check_small_training(torch, mode, counters):
     with torch.no_grad():
         net0.update.d[1].weight.mul_(0.1)
     probe = TrainForward(net0, n_frames=NF, M=8, steps=9)
-    draws = [probe.draw(torch.Generator().manual_seed(100 + k), "cpu")
+    draws = [probe.draw(torch.Generator().manual_seed(100 + k), "cpu", ht, wd)
              for k in range(2)]
     cpu = small_train_run(torch, "cpu", net0, batch, draws)
     for c in counters.values():
@@ -2127,6 +2541,13 @@ def main() -> int:
                     help="only compare the K2 build variants")
     ap.add_argument("--chunk-only", action="store_true",
                     help="only the chunked path (CUDA-graph replay) phase")
+    ap.add_argument("--pose-only", action="store_true",
+                    help="only the pose-prediction phase (5b)")
+    ap.add_argument("--selection-only", action="store_true",
+                    help="only the patch-selection phase (5c) and its "
+                    "training step")
+    ap.add_argument("--native-only", action="store_true",
+                    help="only the native event-builder phase (5d)")
     ap.add_argument("--ab", metavar="DIR",
                     help="only time K7, K2, K3 and the folded correlation "
                     "in the tree at DIR and in this one, in turns")
@@ -2205,6 +2626,26 @@ def main() -> int:
                        torch.tensor([320.0, 320.0, W / 2, H / 2],
                                     device="cuda"))
         return 0
+    counters = {"K1": ck.corr_lattice, "K2": ek.lstm_fold_cm,
+                "K3": sk.lstm_carry_fold_cm, "K4": bk.corr_lattice_bands,
+                "K4f": bk.corr_folded_cuda,
+                "K5": pk.corr_lattice_paired, "K6": ck.corr_lattice_cb,
+                "K7": ctk.corr_train_cuda, "K8": ctk.corr_train_bwd_cuda,
+                "P1": p1.dynlane, "P2": p2.grid_probe}
+    if args.pose_only or args.selection_only or args.native_only:
+        if args.native_only:
+            run_native_phase(card)
+        if args.pose_only:
+            run_pose_phase(torch, counters, card)
+        if args.selection_only:
+            run_selection_phase(
+                torch, p2, counters, make_frames(torch, FRAMES, H, W, 1,
+                                                 "cuda"),
+                torch.tensor([320.0, 320.0, W / 2, H / 2], device="cuda"),
+                card)
+            torch.cuda.empty_cache()
+            run_selection_training(torch, counters, card)
+        return 0
 
     k2, k1, k3, k7, k8, lay, probes = {}, {}, {}, {}, {}, {}, {}
     check_lstm_fold(torch, ek, k2)
@@ -2212,12 +2653,6 @@ def main() -> int:
     check_corr_layouts(torch, ck, pk, bk, lay)
     check_lstm_carry_fold(torch, sk, k3)
     check_corr_train(torch, ctk, k7, k8)
-    counters = {"K1": ck.corr_lattice, "K2": ek.lstm_fold_cm,
-                "K3": sk.lstm_carry_fold_cm, "K4": bk.corr_lattice_bands,
-                "K4f": bk.corr_folded_cuda,
-                "K5": pk.corr_lattice_paired, "K6": ck.corr_lattice_cb,
-                "K7": ctk.corr_train_cuda, "K8": ctk.corr_train_bwd_cuda,
-                "P1": p1.dynlane, "P2": p2.grid_probe}
     check_probes(torch, p1, p2, counters, probes)
     for mode in ("MultiScale", "SingleScale"):
         check_small_slice(torch, mode)
@@ -2250,9 +2685,14 @@ def main() -> int:
     run_eviction_pass(torch, frames)
     run_chunk_path(torch, p2, frames, intr)
     run_cli_phase(torch, counters)
+    run_pose_phase(torch, counters, card)
+    run_selection_phase(torch, p2, counters, frames, intr, card)
+    run_native_phase(card)
     del frames
     torch.cuda.empty_cache()
     n_tr, _, _, _ = run_train_main_path(torch, counters)
+    torch.cuda.empty_cache()
+    run_selection_training(torch, counters, card)
 
     n_ms = paths["MultiScale", "fused3"]
     n_ss = paths["SingleScale", "fused3"]

@@ -1,13 +1,13 @@
-"""Gauss-Newton bundle adjustment (port of rampvo_tpu/ba/core.py): the
-lattice path of `ba_infer` for inference and the differentiable `ba_train`
-for training.
+"""Gauss-Newton bundle adjustment (port of rampvo_tpu/ba/core.py): `ba_infer`
+for inference (its lattice path for the VO update, its flat path for pose
+prediction) and the differentiable `ba_train` for training.
 
 `ba_infer` (reference fastba ba_cuda.cu:232-376,430-576):
 Gates ||r|| < 128 px, Z > 0.2, center within 64 px of the image; damping
 S_kk += 1e-4 S_kk + 1; depth retraction with reset d > 20 -> 1 and floor
 1e-4; poses t0..t1 free. Only patch centers enter the normal equations.
-All edges of a lattice cell share a pose pair, so linearization and
-assembly run per cell. A failed Cholesky zeroes the update
+On the lattice path all edges of a cell share a pose pair, so
+linearization and assembly run per cell. A failed Cholesky zeroes the update
 (the reference skips it, Ramp_vo.py:302-306) without leaving the device.
 
 `ba_train` (reference ramp/ba.py:86-182): one differentiable GN step over
@@ -241,29 +241,40 @@ def _retract(poses, dX, t0, n_dyn):
 
 
 def ba_infer(poses, cwin, intrinsics, targets, weights, lmbda, ii, jj, kk,
-             t0: int, t1: int, *, N: int, M: int, lattice, win_rows,
+             t0: int, t1: int, *, N: int, M: int, lattice=None, win_rows=None,
              iterations: int = 2, valid=None):
-    """Inference GN BA over lattice-ordered edges.
+    """Inference GN BA over lattice-ordered edges, or over a flat edge list
+    with `lattice=None` (ref ba/core.py::ba_infer).
 
     poses [Np, 7] (window); cwin [M, 3] patch centers (x, y, inverse depth);
     intrinsics [4]; targets, weights [E, 2]; ii/jj [E] window frame indices;
-    kk [E] patch slots (clamped into [0, M)); t0/t1 both host ints or both
-    0-d int64 tensors (as the reference's traced scalars: nothing is read on
-    the host), poses [t0, t1) free; lattice (NI, T, Mp); win_rows [M // Mp]
-    lattice row of each window frame (-1). Returns (poses', inverse depths
-    [M])."""
+    kk [E] patch slots (gathered clamped into [0, M); the flat assembly
+    drops out-of-range ones); t0/t1 both host ints or both 0-d int64
+    tensors (as the reference's traced scalars: nothing is read on the
+    host), poses [t0, t1) free; lattice (NI, T, Mp) and win_rows [M // Mp]
+    lattice row of each window frame (-1), or both None: the flat path
+    linearizes edge by edge and assembles through one-hots (`_assemble`).
+    Returns (poses', inverse depths [M])."""
     fx, fy, cx, cy = intrinsics.unbind(-1)
     n_dyn = t1 - t0
-    Mp = lattice[2]
-    ii_c = ii.reshape(-1, Mp)[:, 0]
-    jj_c = jj.reshape(-1, Mp)[:, 0]
-    kk = kk.long().clamp(0, M - 1)
+    if lattice is not None:
+        Mp = lattice[2]
+        ii_c = ii.reshape(-1, Mp)[:, 0]
+        jj_c = jj.reshape(-1, Mp)[:, 0]
+    else:
+        intr_e = intrinsics.expand(ii.shape[0], 4)
+    k_slot = kk.long()
+    kk = k_slot.clamp(0, M - 1)
     i_slot = ii - t0
     j_slot = jj - t0
     for _ in range(iterations):
         centers = cwin[kk]
-        coords, Z, Ji, Jj, Jz = linearize_center_cells(
-            poses, centers, intrinsics, ii_c, jj_c, Mp)
+        if lattice is not None:
+            coords, Z, Ji, Jj, Jz = linearize_center_cells(
+                poses, centers, intrinsics, ii_c, jj_c, Mp)
+        else:
+            coords, Z, Ji, Jj, Jz = linearize_center(
+                poses, centers, intr_e, intr_e, ii, jj)
         r = targets - coords
         gate = ((torch.linalg.norm(r, dim=-1) < 128.0) & (Z > 0.2)
                 & (coords[:, 0] > -64.0) & (coords[:, 1] > -64.0)
@@ -273,8 +284,12 @@ def ba_infer(poses, cwin, intrinsics, targets, weights, lmbda, ii, jj, kk,
             gate = gate & valid
         w = torch.where(gate[:, None], weights, torch.zeros_like(weights))
         rg = torch.where(gate[:, None], r, torch.zeros_like(r))
-        Bm, Em, C, v, u, touched = _assemble_cellwise(
-            rg, w, Ji, Jj, Jz, i_slot, j_slot, N, M, lattice, win_rows)
+        if lattice is not None:
+            Bm, Em, C, v, u, touched = _assemble_cellwise(
+                rg, w, Ji, Jj, Jz, i_slot, j_slot, N, M, lattice, win_rows)
+        else:
+            Bm, Em, C, v, u, touched = _assemble(
+                rg, w, Ji, Jj, Jz, i_slot, j_slot, k_slot, N, M)
         dX, dZ = _solve_schur(Bm, Em, C, v, u, lmbda, 1.0, 1e-4, n_dyn)
         poses = _retract(poses, dX, t0, n_dyn)
         d = cwin[:, 2] + dZ

@@ -5,16 +5,18 @@ Flag-compatible with the JAX CLI:
   python -m rampvo_tpu_torch.cli.evaluate --weights W.pth
       --config_VO config_vo/x.yaml --config_eval config_net/x.json
       [--trials N] [--downsample_fact N] [--results_path out.json]
-      [--chunk K] [--shard i:n] [--device cuda|cpu]
+      [--chunk K] [--fleet N | --shard i:n] [--device cuda|cpu]
 
 Consumes the same config_net/*.json and config_vo/*.yaml files and the
 same scene directory layout, and writes the same outputs (per-trial
 ATE/rotation JSON, stamped TUM trajectories, COLMAP export). Runs on the
 card unless `--device cpu` is given. `--chunk K` runs the initialized
 frames K at a time (`RampVO(chunk=K)`: one CUDA-graph replay per K frames
-on the card, the same frames eagerly on the CPU). Not ported yet, and
-refused rather than approximated: `--fleet` (multi-GPU scene fleet) and
-`use_pose_pred: true` (pose prediction); ROADMAP section 1 names each.
+on the card, the same frames eagerly on the CPU). `--fleet N` runs N
+worker processes of this CLI, each on a round-robin shard of the scenes
+(`--shard i:N`, `parallel/eval_fleet.py`), and merges their results.
+`use_pose_pred: true` in the eval config's test section scores the
+pose-prediction mode (`run_pose_pred`).
 """
 
 from __future__ import annotations
@@ -32,14 +34,9 @@ from ..ckpt.train_state import restore_checkpoint
 from ..ckpt.weights import load_pth
 from ..data.loader import data_loader_all_events, device_prefetch
 from ..models.vonet import VONet
+from ..parallel.eval_fleet import parse_shard, run_fleet
 from ..vo import RampVO, VOConfig
 from . import eval_utils as eu
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to rampvo_tpu_torch yet (ROADMAP section 1, "
-        f"{item})")
 
 
 def load_intrinsics(K_path=None):
@@ -100,14 +97,55 @@ def run(config_VO: VOConfig, net: VONet, eval_cfg, data_list, seed: int = 0,
     return poses, tstamps, points, colors
 
 
+def run_pose_pred(config_VO: VOConfig, net: VONet, eval_cfg, data_list,
+                  t_horizon_to_pred: int, t_to_pred: int, deg_approx: int = 4,
+                  seed: int = 0, device="cuda", chunk: int = 1):
+    """Pose-prediction evaluation mode (ref: evaluate.py:184-229): run the
+    VO up to frame t_to_pred, refine, then extrapolate each later frame up
+    to t_to_pred + t_horizon_to_pred with the spline predictor
+    (`RampVO.predict_future_pose`) instead of ingesting it; refine once
+    more and return `terminate()`'s (poses, tstamps)."""
+    train_cfg = eval_cfg["data_loader"]["train"]["args"]
+    dev = resolve_device(device)
+    H, W = data_list[0]["image"].shape[1:3]
+    slam = RampVO(config_VO, net, input_mode=train_cfg["input_mode"],
+                  num_event_bins=train_cfg["num_event_bins"], ht=H, wd=W,
+                  event_bias=train_cfg.get("event_bias", True), seed=seed,
+                  device=dev, chunk=chunk)
+    last_kf = 0
+    for t, d in enumerate(device_prefetch(data_list, dev)):
+        if t < t_to_pred or t_to_pred < 0:
+            slam(t, d["events"], d["image"], d["mask"], d["intrinsics"])
+            last_kf = slam.state.n
+        if t == t_to_pred and t_to_pred > 0:
+            slam.final_refinement(12)
+        if t >= t_to_pred and t_to_pred > 0:
+            slam.predict_future_pose(
+                sec_to_pred_future=t - t_to_pred, abs_time=t,
+                last_keyframe_number=last_kf, deg=deg_approx)
+        if t == t_to_pred + t_horizon_to_pred:
+            break
+    slam.final_refinement(12)
+    return slam.terminate()
+
+
 def evaluate_sequence(config_VO, net, eval_cfg, data_list, traj_ref,
-                      img_timestamps, seed: int = 0, device="cuda",
-                      chunk: int = 1):
-    """(ref: evaluate.py:263-312; the pose-prediction mode is not
-    ported)"""
-    poses, tstamps, points, colors = run(
-        config_VO, net, eval_cfg, data_list, seed=seed, device=device,
-        chunk=chunk)
+                      img_timestamps, use_pose_pred: bool = False,
+                      seed: int = 0, device="cuda", chunk: int = 1):
+    """(ref: evaluate.py:263-312)"""
+    if use_pose_pred:
+        # predict the second half of the trajectory (ref evaluate.py:268-279)
+        t_to_pred = traj_ref.num_poses // 2
+        poses, tstamps = run_pose_pred(
+            config_VO, net, eval_cfg, data_list,
+            t_horizon_to_pred=traj_ref.num_poses - t_to_pred,
+            t_to_pred=t_to_pred, seed=seed, device=device, chunk=chunk)
+        points = np.zeros((len(poses), 3), np.float32)
+        colors = np.zeros((len(poses), 3), np.float32)
+    else:
+        poses, tstamps, points, colors = run(
+            config_VO, net, eval_cfg, data_list, seed=seed, device=device,
+            chunk=chunk)
     used = img_timestamps[: len(poses)] if len(img_timestamps) >= len(poses) \
         else np.arange(len(poses), dtype=float)
     traj_est = eu.est_trajectory(poses, used)
@@ -145,13 +183,11 @@ def evaluate(net, trials=1, downsample_fact=1, config_VO=None, eval_cfg=None,
              colmap_dir=None, device="cuda", chunk: int = 1):
     """Per-scene evaluation loop (ref: evaluate.py:313-412). A crash inside
     one trial scores the ate=1000 sentinel instead of aborting the run
-    (ref evaluate.py:308-310); options that are not ported raise first."""
+    (ref evaluate.py:308-310)."""
     test_ = eval_cfg["data_loader"]["test"]
     train_ = eval_cfg["data_loader"]["train"]["args"]
     norm_to = train_.get("norm_to")
     input_mode = train_["input_mode"]
-    if test_.get("use_pose_pred", False):
-        _unported("use_pose_pred", "item 12, pose prediction")
     dev = resolve_device(device)
 
     if config_VO is None:
@@ -180,6 +216,7 @@ def evaluate(net, trials=1, downsample_fact=1, config_VO=None, eval_cfg=None,
                 ate, rot, traj_est, ref, (points, colors) = evaluate_sequence(
                     config_VO, net, eval_cfg, data_list, traj_ref,
                     used_ts[frame_indices] if len(frame_indices) else used_ts,
+                    use_pose_pred=test_.get("use_pose_pred", False),
                     seed=j,  # trials differ through the stochastic pieces
                     device=dev, chunk=chunk,
                 )
@@ -215,15 +252,6 @@ def evaluate(net, trials=1, downsample_fact=1, config_VO=None, eval_cfg=None,
     return results
 
 
-def parse_shard(spec: str, scenes: list) -> list:
-    """`--shard i:n` -> this worker's round-robin scene subset (a copy of
-    rampvo_tpu/parallel/eval_fleet.py::parse_shard)."""
-    i, n = (int(x) for x in spec.split(":"))
-    if not 0 <= i < n:
-        raise ValueError(f"bad shard spec {spec!r}")
-    return scenes[i::n]
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--weights", default="RAMPVO_MultiScale.pth")
@@ -238,7 +266,8 @@ def main(argv=None):
                         "frames on the card (1 = every frame eagerly)")
     parser.add_argument("--results_path", type=str, default=None)
     parser.add_argument("--fleet", type=int, default=0,
-                        help="scene-shard worker processes; not ported")
+                        help="run N scene-shard worker processes and merge "
+                        "their results")
     parser.add_argument("--shard", type=str, default=None,
                         help="evaluate only shard i of n (format i:n)")
     parser.add_argument("--device", type=str, default="cuda",
@@ -246,7 +275,15 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     if args.fleet:
-        _unported("--fleet", "item 16, multi-GPU")
+        argv = ["--weights", args.weights, "--config_VO", args.config_VO,
+                "--config_eval", args.config_eval, "--trials",
+                str(args.trials), "--downsample_fact",
+                str(args.downsample_fact), "--chunk", str(args.chunk),
+                "--device", args.device]
+        results = run_fleet(args.fleet, argv, args.results_path)
+        for k in results:
+            print(k, results[k])
+        return
     config_VO = VOConfig.from_yaml(args.config_VO)
     with open(args.config_eval) as f:
         eval_cfg = json.load(f)

@@ -52,10 +52,6 @@ class TrainLoop:
 
     def __init__(self, args, config, dataset, M: int = 80):
         train_cfg = config["data_loader"]["train"]["args"]
-        if not train_cfg.get("event_bias", True):
-            raise NotImplementedError(
-                "event_bias: false is not ported to rampvo_tpu_torch yet "
-                "(ROADMAP section 1, item 14b)")
         if len(dataset) == 0:
             raise RuntimeError("the training dataset is empty")
         self.args, self.config, self.train_cfg = args, config, train_cfg
@@ -70,7 +66,9 @@ class TrainLoop:
         self.fwd = TrainForward(
             self.net, n_frames=train_cfg["n_frames"], M=M,
             steps=args.unroll_steps, flow_weight=train_cfg["flow_weight"],
-            pose_weight=train_cfg["pose_weight"])
+            pose_weight=train_cfg["pose_weight"],
+            event_bias=train_cfg.get("event_bias", True),
+            gradient_bias=train_cfg.get("gradient_bias", False))
         self.trainer = Trainer(self.net, train_cfg)
         self.step_count = 0
         if args.ckpt is not None:

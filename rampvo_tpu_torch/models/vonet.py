@@ -127,6 +127,61 @@ def select_coords_event_bias(events, M: int, nms_rad: int = 11):
     return torch.stack([x, y], dim=-1)
 
 
+def selection_draws(gradient: bool, n: int, M: int, ht: int, wd: int,
+                    generator: torch.Generator):
+    """The integer draws of `select_coords_gradient_bias` (`gradient`) or
+    `select_coords_random` for n frames of ht x wd images, from
+    `generator` on its own device: (x, y) int64 [n, C], x in [1, w - 1)
+    and y in [1, h - 1) of the map the selector ranks, C = 3M candidates
+    of the (ht-1)/4 x (wd-1)/4 gradient map, or M of the ht/4 x wd/4
+    feature map."""
+    if gradient:
+        return _draw_xy(n, 3 * M, (ht - 1) // 4, (wd - 1) // 4, generator)
+    return _draw_xy(n, M, ht // 4, wd // 4, generator)
+
+
+def _draw_xy(n: int, C: int, h: int, w: int, generator: torch.Generator):
+    dev = generator.device
+    x = torch.randint(1, w - 1, (n, C), generator=generator, device=dev)
+    y = torch.randint(1, h - 1, (n, C), generator=generator, device=dev)
+    return x, y
+
+
+def select_coords_random(n: int, M: int, h: int, w: int, generator=None,
+                         draws=None):
+    """Uniform random interior coords at 1/4 resolution (ref
+    net.py:186-188): [n, M, 2] float (x, y), x in [1, w - 1), y in
+    [1, h - 1). `draws` (x, y) [n, M] are the integers (e.g. a JAX run's),
+    else `generator` draws them."""
+    if draws is None:
+        draws = _draw_xy(n, M, h, w, generator)
+    x, y = draws
+    return torch.stack([x, y], dim=-1).float()
+
+
+def select_coords_gradient_bias(images, M: int, generator=None, draws=None):
+    """Random candidates ranked by image gradient magnitude (ref
+    net.py:172-183, utils.py:110-119): the gray image's forward
+    differences, their norm average-pooled 4x4, read at 3M random
+    candidates, the top M kept (ties to the lower index, like
+    jax.lax.top_k). images [n, H, W, 3] normalized; `draws` (x, y)
+    [n, 3M], else `generator` draws them. Returns coords [n, M, 2] float
+    (x, y)."""
+    n, H, W, _ = images.shape
+    gray = ((images + 0.5) * (255.0 / 2)).sum(dim=-1)
+    dx = gray[:, :-1, 1:] - gray[:, :-1, :-1]
+    dy = gray[:, 1:, :-1] - gray[:, :-1, :-1]
+    g = avg_pool2d(torch.sqrt(dx * dx + dy * dy)[..., None], 4)[..., 0]
+    if draws is None:
+        draws = selection_draws(True, n, M, H, W, generator)
+    x, y = (d.to(images.device) for d in draws)
+    vals = g[torch.arange(n, device=g.device)[:, None], y, x]
+    top = torch.sort(vals, dim=1, descending=True, stable=True).indices[:, :M]
+    xs = torch.gather(x, 1, top).float()
+    ys = torch.gather(y, 1, top).float()
+    return torch.stack([xs, ys], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # patch gathering
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ reference: poses and patches are detached at each step start
 Random draws come from a `torch.Generator`, or from `draws` (the numbers a
 JAX run drew, for tests): {"depth": [NF*M] uniform, "drop": [steps]
 uniform (read at insertion steps), "keep1"/"keep2": [steps, E] bool, the
-per-level gradient-dropout masks}.
+per-level gradient-dropout masks, and without event_bias "sel": (x, y)
+[NF, C] the patch selection's integers (`models.vonet.selection_draws`)}.
 """
 
 from __future__ import annotations
@@ -27,7 +28,13 @@ from torch.utils.checkpoint import checkpoint
 from ..ba.core import ba_train
 from ..geometry.projective import transform_edges
 from ..lie import ops as lops
-from ..models.vonet import extract_patches, select_coords_event_bias
+from ..models.vonet import (
+    extract_patches,
+    select_coords_event_bias,
+    select_coords_gradient_bias,
+    select_coords_random,
+    selection_draws,
+)
 from ..ops.corr import avg_pool2d
 from ..ops.corr_train_kernels import corr_train_fused
 from .loss import masked_norm, pose_loss_terms
@@ -112,11 +119,14 @@ class TrainForward:
     generator, draws) -> (loss, metrics {loss, px1, flow_e, ro, tr}), with
     events [T, H, W, Ce], images [NF, H, W, 3], poses [NF, 7]
     world-to-camera, disps [NF, H, W], intrinsics [NF, 4], mask [T] bool
-    (NF true entries). Gradients reach `vonet`'s parameters."""
+    (NF true entries). Gradients reach `vonet`'s parameters. Patches are
+    selected by event density (`event_bias`), else by image gradient
+    (`gradient_bias`), else at random (ref net.py:164-188)."""
 
     def __init__(self, vonet, n_frames: int, M: int = 80, steps: int = 18,
                  flow_weight: float = 0.1, pose_weight: float = 10.0,
-                 P: int = 3):
+                 P: int = 3, event_bias: bool = True,
+                 gradient_bias: bool = False):
         self.vonet = vonet
         self.n_frames = n_frames
         self.M = M
@@ -124,6 +134,8 @@ class TrainForward:
         self.P = P
         self.flow_weight = flow_weight
         self.pose_weight = pose_weight
+        self.event_bias = event_bias
+        self.gradient_bias = gradient_bias
         self.sched = edge_schedule(n_frames, M, steps)
         s = self.sched
         ij = s.ii.astype(np.int64) * 12345 + s.jj
@@ -147,15 +159,20 @@ class TrainForward:
                 tuple(t(v).long() for v in self._agg_ids))
         return self._dev[device]
 
-    def draw(self, generator, device):
-        """Every random number of one window, from `generator`."""
+    def draw(self, generator, device, ht: int, wd: int):
+        """Every random number of one window of ht x wd frames, from
+        `generator`."""
         g = generator
         E, NM = self.E, self.n_frames * self.M
         rand = lambda *s: torch.rand(*s, generator=g, device=g.device).to(
             device)
-        return {"depth": rand(NM), "drop": rand(self.steps),
-                "keep1": rand(self.steps, E) < KEEP_P,
-                "keep2": rand(self.steps, E) < KEEP_P}
+        out = {"depth": rand(NM), "drop": rand(self.steps),
+               "keep1": rand(self.steps, E) < KEEP_P,
+               "keep2": rand(self.steps, E) < KEEP_P}
+        if not self.event_bias:
+            out["sel"] = tuple(x.to(device) for x in selection_draws(
+                self.gradient_bias, self.n_frames, self.M, ht, wd, g))
+        return out
 
     def _encode(self, events, images, mask):
         """The window encoder, recomputed in the backward pass (the
@@ -175,7 +192,7 @@ class TrainForward:
         if draws is None:
             if generator is None:
                 raise ValueError("TrainForward: give a generator or draws")
-            draws = self.draw(generator, dev)
+            draws = self.draw(generator, dev, *images.shape[1:3])
         intr4 = intrinsics[0] / 4.0            # shared pinhole at 1/4 res
         intr_frames = intr4.expand(NF, 4)
 
@@ -184,7 +201,14 @@ class TrainForward:
 
         sup = [t for t, v in enumerate(torch.as_tensor(mask).tolist()) if v]
         sup = (sup + [events.shape[0] - 1] * NF)[:NF]
-        coords = select_coords_event_bias(events[sup], M, nms_rad=11)
+        if self.event_bias:
+            coords = select_coords_event_bias(events[sup], M, nms_rad=11)
+        elif self.gradient_bias:
+            coords = select_coords_gradient_bias(images, M,
+                                                 draws=draws["sel"])
+        else:
+            coords = select_coords_random(NF, M, *fmap.shape[1:3],
+                                          draws=draws["sel"])
         gmap, imap, patches0, _ = extract_patches(
             fmap, imap_full, images, disps[:, 1::4, 1::4], coords, P=P)
         gmap_flat = gmap.reshape(NF * M, P, P, 128)

@@ -10,6 +10,11 @@ CPU the same K frames run eagerly, so the CPU tests run every operation
 the graph holds. A capture or a replay that fails raises: nothing falls
 back to eager frames on the card.
 
+Patch selection without event_bias draws its integers before each call,
+on the device, from the chunk's own generator (or takes them from the
+caller) into the static inputs the graph reads: the capture holds no
+random number generation and no upload.
+
 Launch counters: a kernel wrapper counts where the host issues its launch,
 which for a graph is the capture, not the replay. `frames.captured` holds
 the launches the capture counted, by wrapper name; every replay runs that
@@ -23,7 +28,7 @@ import dataclasses
 import torch
 
 from .. import resolve_device
-from ..models.vonet import VONet
+from ..models.vonet import VONet, selection_draws
 from ..ops.corr_band_kernels import corr_folded_cuda, corr_lattice_bands
 from ..ops.corr_kernels import corr_lattice, corr_lattice_cb
 from ..ops.corr_paired_kernels import corr_lattice_paired
@@ -74,29 +79,38 @@ def state_tensors(state: VOState) -> list:
 
 
 def make_vo_frames_chunk(cfg: VOConfig, vonet: VONet, K: int, device="cuda",
-                         frame=None):
+                         frame=None, seed: int = 0):
     """K initialized frames per call, with the semantics of K calls of the
     host-driven frame with a true mask.
 
     frames(state, events [K, 1, H, W, Ce], images [K, 1, H, W, 3],
-    intrinsics [4]) -> state: `state` initialized, the same state object
-    on every call (the graph holds its tensors); `intrinsics` serve all K
-    frames, as the JAX chunk takes its first frame's. The host checks that
-    the K frames fit the buffers, fills the device scalars `n` and
-    `counter` from the state's host values, runs the frames and reads `n`
-    back once (one wait a chunk). `frame` is a `make_vo_frame` step of the
-    same network to share (weights packed once); `vonet` must live on
-    `device`.
+    intrinsics [4], sel=None) -> state: `state` initialized, the same
+    state object on every call (the graph holds its tensors); `intrinsics`
+    serve all K frames, as the JAX chunk takes its first frame's. The host
+    checks that the K frames fit the buffers, fills the device scalars `n`
+    and `counter` from the state's host values, runs the frames and reads
+    `n` back once (one wait a chunk). `frame` is a `make_vo_frame` step of
+    the same network to share (weights packed once; its patch selection
+    is the chunk's), else an event-biased one is made; `vonet` must live
+    on `device`. A step without event_bias takes each frame's selection
+    draws from `sel` ((x, y) [K, 1, C] integers) or draws them on the
+    device from a generator seeded with `seed`. A step with an oracle is
+    refused.
     """
     dev = resolve_device(device)
     step = make_vo_frame(cfg, vonet, dev) if frame is None else frame
+    if step.oracle is not None:
+        raise ValueError("the chunked frames run no oracle")
+    gen = (None if step.event_bias
+           else torch.Generator(device=dev).manual_seed(seed))
     n_dev = torch.zeros((), dtype=torch.int64, device=dev)
     counter_dev = torch.zeros((), dtype=torch.int64, device=dev)
     held: dict = {}
 
-    def run(view, events, images, intrinsics):
+    def run(view, events, images, intrinsics, *sel):
         for k in range(K):
-            step.frame_init(view, events[k], images[k], intrinsics)
+            step.frame_init(view, events[k], images[k], intrinsics,
+                            tuple(s[k] for s in sel) or None)
 
     def capture(view, inputs):
         bufs = [x.clone() for x in inputs]           # the static inputs
@@ -108,7 +122,7 @@ def make_vo_frames_chunk(cfg: VOConfig, vonet: VONet, K: int, device="cuda",
             # attributes, library handles) outside the capture, on a copy
             # of the state
             step.frame_init(copy_state(view), bufs[0][0], bufs[1][0],
-                            bufs[2])
+                            bufs[2], tuple(s[0] for s in bufs[3:]) or None)
         cur.wait_stream(side)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
@@ -120,7 +134,7 @@ def make_vo_frames_chunk(cfg: VOConfig, vonet: VONet, K: int, device="cuda",
         held.update(graph=graph, bufs=bufs,
                     ptrs=[t.data_ptr() for t in state_tensors(view)])
 
-    def frames(state: VOState, events, images, intrinsics):
+    def frames(state: VOState, events, images, intrinsics, sel=None):
         if not state.initialized:
             raise ValueError("make_vo_frames_chunk runs initialized frames")
         if state.counter + K > cfg.MAX_FRAMES or state.n + K > cfg.BUFFER_SIZE:
@@ -132,6 +146,12 @@ def make_vo_frames_chunk(cfg: VOConfig, vonet: VONet, K: int, device="cuda",
                   for x in (events, images, intrinsics)]
         if inputs[0].shape[0] != K or inputs[1].shape[0] != K:
             raise ValueError(f"a chunk holds {K} frames")
+        if gen is not None:
+            if sel is None:
+                ht, wd = inputs[1].shape[2:4]
+                sel = [x[:, None] for x in selection_draws(
+                    cfg.GRADIENT_BIAS, K, cfg.M, ht, wd, gen)]
+            inputs += [torch.as_tensor(x, device=dev).long() for x in sel]
         n_dev.fill_(state.n)
         counter_dev.fill_(state.counter)
         view = dataclasses.replace(state, n=n_dev, counter=counter_dev)

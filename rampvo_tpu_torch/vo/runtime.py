@@ -54,6 +54,9 @@ from ..models.vonet import (
     filter_features,
     fold_corr_fc1,
     select_coords_event_bias,
+    select_coords_gradient_bias,
+    select_coords_random,
+    selection_draws,
 )
 from ..ops.corr import avg_pool2d, corr, corr_stack
 from ..ops.corr_band_kernels import corr_lattice2_stacked
@@ -291,6 +294,15 @@ def _lattice_corr(cfg: VOConfig, *args):
     return corr_lattice(*args)
 
 
+def _reproject_lattice_edges(cfg: VOConfig, state: VOState):
+    """Every lattice edge's reprojected patch [E, P, P, 2] (x, y), in
+    edge_table's order (the oracle's input; ref vo/runtime.py::
+    _reproject_edges_lattice)."""
+    u, v, _, _ = _reproject_lattice_planar(cfg, state)
+    P = state.gmap_r.shape[-3]
+    return torch.stack([u, v], dim=-1).reshape(-1, P, P, 2)
+
+
 def _edge_corr_ctx_lattice(cfg: VOConfig, state: VOState):
     """Correlation + context for the full lattice. Returns (target [E, 2]
     center reprojections, corr_in [E, 882 or 1152] in cfg.CORR_LAYOUT's
@@ -396,17 +408,29 @@ def _append_edges_dev(cfg: VOConfig, state: VOState):
         x[rows, tf] = torch.where(ok[:, None, None], 0.0, x[rows, tf])
 
 
-def _update(cfg: VOConfig, update_fn, state: VOState):
+def _update(cfg: VOConfig, update_fn, state: VOState, oracle=None):
     """One VO update: reproject -> corr -> update net -> BA
-    (Ramp_vo.py:276-310)."""
+    (Ramp_vo.py:276-310).
+
+    `oracle(state, ii, jj, kk, coords [E, P, P, 2]) -> (delta, weight)`
+    [E, 2] each, when given, replaces the correlation and the update
+    network (the hidden state is left as it is), e.g. to drive BA with
+    ground-truth targets (ref vo/runtime.py:545-580)."""
     M, PW, NI = cfg.M, cfg.POSE_WINDOW, cfg.NI
     n = state.n
     dev = state.poses.device
     ii, jj, kk, valid = edge_table(cfg, n, state.cell_valid)
-    target0, corr_in, ctx = _edge_corr_ctx_lattice(cfg, state)
     lattice = (NI, cfg.T, M)
-    net, (delta, weight) = update_fn(
-        state.net.reshape(-1, DIM), ctx, corr_in, ii, jj, kk, valid, lattice)
+    if oracle is None:
+        target0, corr_in, ctx = _edge_corr_ctx_lattice(cfg, state)
+        net, (delta, weight) = update_fn(
+            state.net.reshape(-1, DIM), ctx, corr_in, ii, jj, kk, valid,
+            lattice)
+    else:
+        coords = _reproject_lattice_edges(cfg, state)
+        P = coords.shape[1]
+        delta, weight = oracle(state, ii, jj, kk, coords)
+        target0, net = coords[:, P // 2, P // 2, :], None
     target = target0 + delta
     weight = filter_features(weight, target, state.hw4)
     weight = torch.where(valid[:, None], weight, torch.zeros_like(weight))
@@ -439,7 +463,8 @@ def _update(cfg: VOConfig, update_fn, state: VOState):
             else torch.minimum(torch.arange(PW, device=dev), k - 1))
     state.poses[win_g[live]] = posew2[live]
     state.pat_d[win_g[live]] = dwin2.reshape(PW, M)[live]
-    state.net.copy_(net.reshape(state.net.shape))
+    if net is not None:
+        state.net.copy_(net.reshape(state.net.shape))
     state.last_weight.copy_(weight.reshape(state.last_weight.shape))
 
 
@@ -605,19 +630,33 @@ def make_update_fn(cfg: VOConfig, net: VONet, half: bool,
     return update_fn
 
 
-def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
+def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
+                  event_bias: bool = True, oracle=None):
     """Build the per-frame step.
 
     vo_frame(state, events [1, H, W, Ce], images [1, H, W, 3], mask [1]
-    (host bool, >= 1 true), intrinsics [4], rand_d [M] or None) -> state:
-    the host-driven frame. `rand_d` overrides the pre-initialization depth
-    draw (tests feed the reference's numbers); otherwise a generator
-    seeded with `seed` draws them. `vonet` must live on `device`.
+    (host bool, >= 1 true), intrinsics [4], rand_d [M] or None, sel_draws
+    or None) -> state: the host-driven frame. `rand_d` overrides the
+    pre-initialization depth draw (tests feed the reference's numbers);
+    otherwise a generator seeded with `seed` draws them.
+    `vonet` must live on `device`.
 
-    vo_frame.frame_init(state, events, images, intrinsics) -> state: the
-    branchless frame of an initialized state whose `n` and `counter` are
-    0-d int64 tensors on the state's device (mask true); it reads nothing
-    on the host, so a CUDA graph can hold it (vo/graph.py).
+    Patch selection, in the reference's priority (ref vo/runtime.py:
+    845-862): `event_bias` picks the top event-density locations;
+    otherwise cfg.GRADIENT_BIAS ranks random candidates by image gradient,
+    else the locations are uniform random. Their integers `sel_draws`
+    ((x, y) [1, C], `models.vonet.selection_draws`) are handed in or drawn
+    from the seeded generator, before the depths.
+
+    `oracle` (see `_update`) replaces the update network of every update
+    the frame runs.
+
+    vo_frame.frame_init(state, events, images, intrinsics, sel) -> state:
+    the branchless frame of an initialized state whose `n` and `counter`
+    are 0-d int64 tensors on the state's device (mask true); it reads
+    nothing on the host, so a CUDA graph can hold it (vo/graph.py).
+    Without event_bias `sel` holds its selection draws on the state's
+    device; it runs no oracle.
     """
     dev = resolve_device(device)
     net_h = _half(cfg, vonet)
@@ -653,23 +692,36 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
             return None, None
         return fmap / 4.0, imap / 4.0
 
-    def patches(events, images, fmap, imap):
-        """Patch selection on `events` [1, H, W, Ce] and extraction: (gmap,
-        imap vectors, patches, colors) of the new frame."""
-        coords = select_coords_event_bias(events, cfg.M, nms_rad=11)
+    def patches(events, images, fmap, imap, sel):
+        """Patch selection on `events` [1, H, W, Ce] (event_bias), on
+        `images` (gradient) or at random from the draws `sel`, and
+        extraction: (gmap, imap vectors, patches, colors) of the new
+        frame."""
         h4, w4 = fmap.shape[1], fmap.shape[2]
+        if event_bias:
+            coords = select_coords_event_bias(events, cfg.M, nms_rad=11)
+        elif cfg.GRADIENT_BIAS:
+            coords = select_coords_gradient_bias(images[:1], cfg.M,
+                                                 draws=sel)
+        else:
+            coords = select_coords_random(1, cfg.M, h4, w4, draws=sel)
         disps = torch.ones((1, h4, w4), dtype=torch.float32, device=dev)
         return extract_patches(fmap.float(), imap.float(), images[:1], disps,
                                coords, P=3)
 
     @torch.no_grad()
     def frame_post(state, events, images, mask, intrinsics, fmap, imap,
-                   rand_d=None):
+                   rand_d=None, sel=None):
         M = cfg.M
         mk = np.asarray(mask).reshape(-1).astype(bool)
         sup = int(np.argmax(mk)) if mk.any() else len(mk) - 1
+        if not event_bias:
+            if sel is None:
+                sel = selection_draws(cfg.GRADIENT_BIAS, 1, M,
+                                      images.shape[1], images.shape[2], gen)
+            sel = tuple(torch.as_tensor(x, device=dev) for x in sel)
         gmap, ictx, patches_new, clr = patches(events[sup:sup + 1], images,
-                                               fmap, imap)
+                                               fmap, imap, sel)
         if rand_d is None:
             rand_d = torch.rand(M, generator=gen)
         _commit(cfg, state, fmap, gmap, ictx, patches_new, clr, intrinsics,
@@ -692,30 +744,37 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
         if not state.initialized and state.n == INIT_FRAMES:
             state.initialized = True
             for _ in range(INIT_UPDATES):
-                _update(cfg, update_fn, state)
+                _update(cfg, update_fn, state, oracle)
         elif state.initialized:
-            _update(cfg, update_fn, state)
+            _update(cfg, update_fn, state, oracle)
             _keyframe(cfg, state)
         return state
 
-    def vo_frame(state, events, images, mask, intrinsics, rand_d=None):
+    def vo_frame(state, events, images, mask, intrinsics, rand_d=None,
+                 sel_draws=None):
         events = torch.as_tensor(events, device=dev).float()
         images = torch.as_tensor(images, device=dev).float()
         intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
                                      device=dev)
         fmap, imap = encode_fn(events, images, mask, state.enc)
         return frame_post(state, events, images, mask, intrinsics, fmap, imap,
-                          rand_d)
+                          rand_d, sel_draws)
 
     one = np.ones(1, dtype=bool)
 
     @torch.no_grad()
-    def frame_init(state, events, images, intrinsics):
+    def frame_init(state, events, images, intrinsics, sel=None):
         """The initialized frame with device scalars `n` and `counter`
         (ref vo/runtime.py:838-931 with a true mask): frame_post's commit,
         append, update and keyframe in their branchless forms."""
+        if oracle is not None:
+            raise ValueError("the branchless frame runs no oracle")
+        if not event_bias and sel is None:
+            raise ValueError("the branchless frame takes its selection "
+                             "draws on the device (sel)")
         fmap, imap = encode_fn(events, images, one, state.enc)
-        gmap, ictx, patches_new, clr = patches(events, images, fmap, imap)
+        gmap, ictx, patches_new, clr = patches(events, images, fmap, imap,
+                                               sel)
         _commit(cfg, state, fmap, gmap, ictx, patches_new, clr, intrinsics,
                 None)
         state.n.add_(1)
@@ -726,6 +785,7 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0):
 
     vo_frame.encode_fn = encode_fn
     vo_frame.frame_init = frame_init
+    vo_frame.event_bias, vo_frame.oracle = event_bias, oracle
     return vo_frame
 
 
@@ -771,8 +831,9 @@ class RampVO:
     vonet: a `VONet` holding the weights (e.g. `ckpt.weights.load_pth`
     loaded into it, or `models.vonet.init_weights`); its `input_mode`
     picks the encoder, and `input_mode`, when given, must agree with it.
-    `event_bias=False` (random or gradient-biased patch selection) is not
-    ported (ROADMAP): every shipped config sets event_bias.
+    `event_bias=False` selects patches by image gradient
+    (cfg.GRADIENT_BIAS) or at random (`make_vo_frame`); `seed` seeds the
+    draws.
 
     `chunk` K > 1 buffers frames and flushes them as the JAX driver does
     (ref vo/runtime.py:1085-1124): a full buffer of an initialized state
@@ -780,7 +841,10 @@ class RampVO:
     replay on the card), a partial buffer or frames before initialization
     frame by frame. Events-only frames, `final_refinement`, `terminate`
     and `point_cloud` flush first; call `flush()` before reading `state`.
-    K = 1 runs every frame eagerly as it comes."""
+    K = 1 runs every frame eagerly as it comes.
+
+    `predict_future_pose` extrapolates the trajectory past the last frame
+    (`vo.pose_prediction`)."""
 
     def __init__(self, cfg: VOConfig, vonet: VONet, input_mode=None,
                  num_event_bins: int = 5, ht: int = 480, wd: int = 640,
@@ -794,10 +858,6 @@ class RampVO:
                              f"{vonet.input_mode}")
         if num_event_bins != 5:
             raise NotImplementedError("the port runs 5 event bins")
-        if not event_bias:
-            raise NotImplementedError(
-                "event_bias=False (random/gradient patch selection) is not "
-                "ported yet (ROADMAP section 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         # a copy of its own: moving the caller's module to the device
@@ -805,33 +865,46 @@ class RampVO:
         self.vonet = copy.deepcopy(vonet).to(self.device).eval()
         self.ht, self.wd = ht, wd
         self.tlist: list = []
+        # pose-prediction caches (Ramp_vo.py:34-35)
+        self._pp_tracks = None
+        self._pp_models = None
         self.state = init_state(
             cfg, make_enc_state(cfg, input_mode, ht, wd, self.device), ht, wd,
             device=self.device)
-        self._vo_frame = make_vo_frame(cfg, self.vonet, self.device, seed)
+        self._vo_frame = make_vo_frame(cfg, self.vonet, self.device, seed,
+                                       event_bias)
         self._encode_only = make_encode_only(self._vo_frame.encode_fn)
         self.chunk = max(int(chunk), 1)
         self._buf: list = []
         self._vo_chunk = (
             make_vo_frames_chunk(cfg, self.vonet, self.chunk, self.device,
-                                 frame=self._vo_frame)
+                                 frame=self._vo_frame, seed=seed)
             if self.chunk > 1 else None)
 
     def flush(self):
         """Run the buffered frames (chunked mode)."""
         buf, self._buf = self._buf, []
         if len(buf) == self.chunk and self.state.initialized:
-            stack = [torch.stack([torch.as_tensor(b[i], device=self.device)
-                                  for b in buf]) for i in (0, 1)]
-            self._vo_chunk(self.state, *stack, buf[0][3])
-            return
-        for events, image, mask, intrinsics, rand_d in buf:
-            self._vo_frame(self.state, events, image, mask, intrinsics, rand_d)
+            def stack(xs):
+                return torch.stack([torch.as_tensor(x, device=self.device)
+                                    for x in xs])
 
-    def __call__(self, tstamp, events, image, mask, intrinsics, rand_d=None):
+            sel = None
+            if all(b[5] is not None for b in buf):
+                sel = [stack([b[5][i] for b in buf]) for i in (0, 1)]
+            self._vo_chunk(self.state, stack([b[0] for b in buf]),
+                           stack([b[1] for b in buf]), buf[0][3], sel)
+            return
+        for events, image, mask, intrinsics, rand_d, sel in buf:
+            self._vo_frame(self.state, events, image, mask, intrinsics,
+                           rand_d, sel)
+
+    def __call__(self, tstamp, events, image, mask, intrinsics, rand_d=None,
+                 sel_draws=None):
         """events [T, H, W, C] (T == 1), image [1, H, W, 3] normalized, mask
         [T] host bool array, intrinsics [4]. `rand_d` [M] overrides the
-        pre-initialization depth draw."""
+        pre-initialization depth draw and `sel_draws` (x, y) [1, C] the
+        selection draws of a frame without event_bias."""
         mask = np.asarray(mask).reshape(-1).astype(bool)
         if not mask.any():
             self.flush()
@@ -839,11 +912,25 @@ class RampVO:
             return
         self.tlist.append(tstamp)
         if self.chunk > 1:
-            self._buf.append((events, image, mask, intrinsics, rand_d))
+            self._buf.append((events, image, mask, intrinsics, rand_d,
+                              sel_draws))
             if len(self._buf) == self.chunk:
                 self.flush()
             return
-        self._vo_frame(self.state, events, image, mask, intrinsics, rand_d)
+        self._vo_frame(self.state, events, image, mask, intrinsics, rand_d,
+                       sel_draws)
+
+    def predict_future_pose(self, sec_to_pred_future, abs_time,
+                            last_keyframe_number, deg=4, frequency=30.0):
+        """Spline-based future-pose extrapolation (Ramp_vo.py:446-514): one
+        virtual frame appended to the trajectory; returns its pose [7]
+        (world-to-camera)."""
+        self.flush()
+        from .pose_prediction import predict_future_pose
+
+        return predict_future_pose(self, sec_to_pred_future, abs_time,
+                                   last_keyframe_number, deg=deg,
+                                   frequency=frequency)
 
     def final_refinement(self, iters: int = 12):
         """`iters` terminal update iterations (evaluate.py:254-255)."""

@@ -262,16 +262,33 @@ def test_trial_crash_degrades_to_sentinel(scene, tmp_path, monkeypatch):
                                                 "rot_err": [1000.0] * 3}
 
 
-def test_unported_options_raise(scene):
-    """Options that are not ported raise NotImplementedError up front, and
-    the default device is the card."""
-    net = VONet("MultiScale")
+def test_pose_pred_and_fleet_options_run(scene, tmp_path, monkeypatch):
+    """`use_pose_pred: true` scores the pose-prediction mode (the VO runs
+    the voxels before the middle of the reference trajectory, a pose is
+    predicted for each later one: a finite ATE, more poses than ingested
+    frames); `--fleet` starts its workers and a
+    worker's failure raises with its log; `--shard` keeps its round-robin
+    split; the default device is the card."""
+    net = init_weights(VONet("MultiScale"), torch.Generator().manual_seed(0))
     cfg = eval_cfg(scene)
     cfg["data_loader"]["test"]["use_pose_pred"] = True
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pev.evaluate(net, eval_cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pev.main(["--fleet", "2"])
+    results = pev.evaluate(net, config_VO=VOConfig(**SMALL_VO),
+                           eval_cfg=cfg, save_dir=str(tmp_path / "t"),
+                           device="cpu")
+    trial = results[scene]["trial_0"]
+    assert np.isfinite(trial["ate"]) and trial["ate"] != 1000.0
+    est = np.loadtxt(tmp_path / "t" / "full_data" / "trial_0" / "P000"
+                     / "stamped_traj_estimate.txt")
+    gt = np.loadtxt(tmp_path / "t" / "full_data" / "trial_0" / "P000"
+                    / "stamped_groundtruth.txt")
+    assert est.shape[1] == gt.shape[1] == 8
+    assert gt.shape[0] // 2 < est.shape[0] <= gt.shape[0]
+    monkeypatch.setenv("PYTHONPATH", REPO)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match=r"fleet workers \[0, 1\] failed"
+                       r"(.|\n)*No such file"):
+        pev.main(["--fleet", "2", "--config_eval",
+                  str(tmp_path / "missing.json"), "--device", "cpu"])
     assert pev.parse_shard("1:3", list("abcdefg")) == ["b", "e"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -352,8 +352,9 @@ def test_port_imports_no_jax():
     libraries h5py, hdf5plugin, PIL, cv2 and yaml and the training
     loggers' tensorboard and wandb blocked (the card's machine has none of
     some of them), which the port imports only inside the functions that
-    use them. The walk reaches the training and layout slices' modules
-    and the probes."""
+    use them. The walk reaches the training and layout slices' modules,
+    the probes, pose prediction, the evaluation fleet, the TartanEvent
+    entry point and the native event builders."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
@@ -380,5 +381,7 @@ def test_port_imports_no_jax():
                 "data.augmentation", "data.frame_graph", "utils.logger",
                 "ops.corr_perms", "ops.corr_paired_kernels",
                 "ops.corr_band_kernels", "probes.dynlane",
-                "probes.grid_overhead"):
+                "probes.grid_overhead", "vo.pose_prediction",
+                "parallel.eval_fleet", "cli.evaluate_tartanevent",
+                "data.native"):
         assert "rampvo_tpu_torch." + mod in lines, mod

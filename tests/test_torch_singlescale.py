@@ -351,13 +351,27 @@ state's values, rtol 1e-5). Bookkeeping exact
     np.testing.assert_allclose(pb, pa, rtol=1e-5, atol=1e-5)
 
 
-def test_unported_options_raise(weights):
-    """event_bias=False and a mode that disagrees with the network raise
-    instead of running something else."""
+def test_event_bias_false_runs_and_mode_mismatch_raises(weights):
+    """RampVO(event_bias=False) runs the SingleScale frames with patches
+    at random and ranked by image gradient (GRADIENT_BIAS; the selection
+    itself is held to the JAX package in test_torch_selection.py): every
+    selected patch center lies inside the 1/4-res map, away from its
+    border, and each selector picks its own. A mode that disagrees with
+    the network raises instead of running something else."""
     _, net = weights
-    with pytest.raises(NotImplementedError):
-        RampVO(VOConfig(**KW), net, ht=H, wd=W, event_bias=False,
-               device="cpu")
+    centers = []
+    for gradient in (False, True):
+        vo = RampVO(VOConfig(**dict(KW, GRADIENT_BIAS=gradient)), net,
+                    ht=H, wd=W, device="cpu", event_bias=False, seed=1)
+        for f, (ev, im) in enumerate(_frames(3)):
+            vo(f, ev, im, np.ones(1, bool), INTR)
+        st = vo.state
+        assert st.n == 3 and bool(torch.isfinite(st.poses).all())
+        cx, cy = st.pat_cx[:3], st.pat_cy[:3]
+        assert 1 <= float(cx.min()) and float(cx.max()) < W // 4 - 1
+        assert 1 <= float(cy.min()) and float(cy.max()) < H // 4 - 1
+        centers.append(torch.stack([cx, cy]))
+    assert not torch.equal(*centers)
     with pytest.raises(ValueError):
         RampVO(VOConfig(**KW), net, input_mode="MultiScale", ht=H, wd=W,
                device="cpu")

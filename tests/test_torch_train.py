@@ -72,14 +72,23 @@ def window(mode):
         mask=mask)
 
 
-def jax_draws(key, sched):
+def jax_draws(key, sched, selection=None):
     """The numbers JAX's TrainForward draws from `key`, in its split
     order: (k_sel, k_d) at the start, the depth init uniform(k_d); per
     insertion step (k1, k2) and the drop test uniform(k1); per step
-    (k_c1, k_c2) and the per-level keep masks uniform(k, (E,)) < 0.2."""
+    (k_c1, k_c2) and the per-level keep masks uniform(k, (E,)) < 0.2.
+    `selection` "random" or "gradient" adds the patch selection's integers
+    drawn from k_sel (x, then y, as its select_coords_*)."""
     E = sched.ii.shape[0]
     r = key
-    r, _ = jax.random.split(r)
+    r, k_sel = jax.random.split(r)
+    sel = None
+    if selection is not None:
+        C, h, w = ((3 * M, (H - 1) // 4, (W - 1) // 4)
+                   if selection == "gradient" else (M, H // 4, W // 4))
+        kx, ky = jax.random.split(k_sel)
+        sel = tuple(torch.tensor(np.asarray(jax.random.randint(
+            k, (NF, C), 1, hi - 1))) for k, hi in ((kx, w), (ky, h)))
     r, kd = jax.random.split(r)
     depth = np.asarray(jax.random.uniform(kd, (NF * M,)))
     drop = np.ones(STEPS, np.float32)
@@ -92,22 +101,28 @@ def jax_draws(key, sched):
         r, c1, c2 = jax.random.split(r, 3)
         keep1[s] = np.asarray(jax.random.uniform(c1, (E,)) < 0.2)
         keep2[s] = np.asarray(jax.random.uniform(c2, (E,)) < 0.2)
-    return {"depth": torch.tensor(depth), "drop": torch.tensor(drop),
-            "keep1": torch.tensor(keep1), "keep2": torch.tensor(keep2)}
+    out = {"depth": torch.tensor(depth), "drop": torch.tensor(drop),
+           "keep1": torch.tensor(keep1), "keep2": torch.tensor(keep2)}
+    if sel is not None:
+        out["sel"] = sel
+    return out
 
 
-def check_vs_jax(mode, structure_only):
+def check_vs_jax(mode, structure_only, selection=None):
     """Loss within 1e-4 relative, the metrics (loss, px1, flow_e, ro, tr)
     within 1e-4 of max(1, value), and every parameter's gradient within
     1e-2 of max(its largest entry, 1e-3 of the largest entry of all
     gradients): the floor covers the biases ahead of instance norms, whose
     gradient is zero up to rounding (1e-10). Over all parameters the
     gradients differ by under 2e-3 in relative L1. The draws of the JAX
-    run are handed to the port."""
+    run are handed to the port. `selection` "random" or "gradient" trains
+    without event bias (event_bias False, gradient_bias as named)."""
     params = weights(mode)
     b = window(mode)
+    bias = dict(event_bias=selection is None,
+                gradient_bias=selection == "gradient")
     fj = jfw.TrainForward(JVONet(input_mode=mode), n_frames=NF, M=M,
-                          steps=STEPS, corr_impl="xla")
+                          steps=STEPS, corr_impl="xla", **bias)
     key = jax.random.PRNGKey(3)
 
     def loss_fn(p):
@@ -117,11 +132,11 @@ def check_vs_jax(mode, structure_only):
     (lj, mj), gj = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
     net = VONet(mode)
     net.load_state_dict(from_flax_params(params, mode))
-    fp = pfw.TrainForward(net, n_frames=NF, M=M, steps=STEPS)
+    fp = pfw.TrainForward(net, n_frames=NF, M=M, steps=STEPS, **bias)
     assert fp.E == fj.sched.ii.shape[0]
     lp, mp = fp(*(torch.tensor(b[k]) for k in KEYS), b["mask"],
                 structure_only=structure_only,
-                draws=jax_draws(key, fj.sched))
+                draws=jax_draws(key, fj.sched, selection))
     lp.backward()
     lp = lp.detach()
     assert abs(float(lp) - float(lj)) <= 1e-4 * abs(float(lj)), (lp, lj)

@@ -253,6 +253,24 @@ def test_train_loop_from_pth(scene, tmp_path):
         assert torch.equal(loop.net.state_dict()[k], v), k
 
 
+@pytest.mark.parametrize("gradient", [False, True],
+                         ids=["random", "gradient"])
+def test_train_loop_selection_from_config(scene, gradient):
+    """`event_bias: false` in the config trains without event bias, and
+    `gradient_bias` picks the gradient-ranked selection over the random
+    one (as the JAX CLI reads them): one optimizer step at M=8 with
+    finite metrics."""
+    cfg = make_cfg(n_frames=8, event_bias=False, gradient_bias=gradient)
+    args = ptrain.parse_args(["--config_path", "x", "--device", "cpu",
+                              "--unroll_steps", "10"])
+    ds = ptartan.TartanEventDataset(cfg, scene, fmin=0.001, fmax=1000.0)
+    loop = ptrain.TrainLoop(args, cfg, ds, M=8)
+    assert (loop.fwd.event_bias, loop.fwd.gradient_bias) == (False, gradient)
+    loop.run(n_steps=1)
+    (hist,) = loop.history
+    assert all(np.isfinite(v) for v in hist.values()), hist
+
+
 def test_train_cli_module_entry():
     """`python -m rampvo_tpu_torch.cli.train` has the JAX CLI's flags plus
     --device (cuda by default)."""
