@@ -12,6 +12,9 @@
     python3 chip_smoke.py --pose-only      # only pose prediction (5b)
     python3 chip_smoke.py --selection-only # only patch selection (5c)
     python3 chip_smoke.py --native-only    # only the native builders (5d)
+    python3 chip_smoke.py --bins-only      # only K2/K3 at every checked Cx,
+                                           # the 10-bin path (5e) and the
+                                           # geometry and Lie groups (5f)
     python3 chip_smoke.py --ab DIR         # K7, K2, K3 and the folded
                                            # correlation here and in the
                                            # tree at DIR, in turns
@@ -25,7 +28,8 @@ full-size shapes and time both (K1 and K7/K8 on two coordinate sets,
 pixels spread +-3 px and patch-shaped, and on a smaller adversarial set
 that drives the kernels' slow path, borders and non-finite coordinates;
 K2 scale by scale and K3 in each presence case, in bf16 also against the
-plain mirrors of their roundings); hold K4-K6 against K1 (K6, K5 and K4's
+plain mirrors of their roundings, each at Cx = 8 input rows and at 4, 13,
+18 and 64); hold K4-K6 against K1 (K6, K5 and K4's
 folded kernel bit for bit, the folded kernel on all three coordinate
 sets; K4's band with the PyTorch finish within two bf16 roundings); run
 the probes P1 (dynlane) and
@@ -62,7 +66,13 @@ GRADIENT_BIAS true and false, MultiScale eager and chunk=8 twins held
 bit for bit on the same selection draws and timed, SingleScale eager
 (`run_selection_phase`); (5d) the native event builders, built by g++,
 bit for bit against numpy on a 400k-event 480x640 stream and timed
-(`run_native_phase`); (6) the training main path: 3 optimizer steps of
+(`run_native_phase`); (5e) the VO path at 10 event bins (x of Cx = 13
+rows into K2 and K3): small CUDA-vs-CPU runs in both modes, MultiScale
+40 eager frames and a chunk=8 graph twin bit for bit, SingleScale 24
+eager frames, launch counts and ms/frame (`run_bins_phase`); (5f)
+geometry.transform with Jacobians and the Lie groups on the card
+against the CPU at E = 18000 (`run_geometry_phase`); (6) the training
+main path: 3 optimizer steps of
 the MultiScale recipe (config_net/MultiScale_TartanEvent.json) at
 480x640 through the training CLI's loop on an in-memory 30-voxel window
 of the same scene, with launch counts, a checkpoint round trip, s/step,
@@ -131,6 +141,32 @@ def device_ms(torch, fn, key: str, n: int = 20) -> float:
     return sum(e.self_device_time_total for e in ev) / n / 1e3
 
 
+def queued_ms(torch, fn, n: int = 20) -> float:
+    """Device ms per call of `fn` by CUDA events around n calls queued
+    behind a spinning kernel (torch.cuda._sleep): the host issues every
+    launch while the card spins, so the events time the kernels back to
+    back and not the host's issue (the encoder wrappers cost the host
+    more per call than their kernels take). The spin grows until the
+    first event is still waiting when the last call has been issued."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000                  # ~10 ms at the boost clock
+    for _ in range(5):
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        queued = not a.query()
+        torch.cuda.synchronize()
+        if queued:
+            return a.elapsed_time(b) / n
+        cycles *= 4
+    fail("queued_ms: the host issued slower than the card spun")
+
+
 def bound_ms(nbytes: float, flops: float, dt: str):
     tb, to = nbytes / HBM_BPS, flops / PEAK[dt]
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
@@ -140,12 +176,13 @@ def bound_ms(nbytes: float, flops: float, dt: str):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def k2_scale_inputs(torch, dt, seed=2):
+def k2_scale_inputs(torch, dt, seed=2, cx=8):
     """K2's full-size inputs, one tuple (x, ss, wg, bg, wf, bf) per scale
-    (h = 16/32/64 at HW = 307200 / 76800 / 19200)."""
+    (h = 16/32/64 at HW = 307200 / 76800 / 19200), x with cx rows."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
-    return [(rn(8, hw).to(dt), rn(h, hw).to(dt), rn(8, 8 * h) * 0.5,
+    return [(rn(cx, hw).to(dt), rn(h, hw).to(dt),
+             rn(cx, 8 * h) * 0.5 * (8 / cx) ** 0.5,
              rn(8 * h) * 0.1, rn(3 * h, h) / (3 * h) ** 0.5, rn(h) * 0.1)
             for h, hw in K2_SCALES]
 
@@ -156,9 +193,10 @@ def bf16_half_ulp(torch, v):
     return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 9)
 
 
-def check_lstm_fold(torch, ek, out, defines=()):
+def check_lstm_fold(torch, ek, out, defines=(), cx=8):
     """K2 at the three full-size scales (h = 16/32/64 at HW = 307200 /
-    76800 / 19200), bf16 and f32, each scale against the plain version:
+    76800 / 19200) with cx input rows (event bins + 3; 8 on the 5-bin
+    main path), bf16 and f32, each scale against the plain version:
     max |kernel - plain| <= tol * max(1, max |plain|), tol = 1e-2 (bf16:
     bf16 operands and roundings of h and the output) or 1e-4 (f32; only
     the summation order and the transcendental functions differ). bf16
@@ -166,18 +204,20 @@ def check_lstm_fold(torch, ek, out, defines=()):
     unrounded output): within half an output ulp plus 1e-3 of scale (the
     SFU approximations, and the rare h that they send to the other bf16
     neighbour). Each scale and the frame (three launches) timed with the
-    weights packed beforehand, as the VO runtime packs them once. Bound:
-    bytes, operations (bf16 tensor cores; f32 CUDA cores) or the SFU (4
-    transcendental functions a unit at 16 a clock an SM), the largest.
-    Times are device times (profiler): the wrapper's host cost per call
-    is of the kernel's order, so an event-timed loop of launches measures
-    the host (printed beside). `defines` picks a build variant."""
+    weights packed beforehand, as the VO runtime packs them once, by CUDA
+    events around launches queued behind a spin (`queued_ms`): the
+    wrapper's host cost per call is of the kernel's order, so a plain
+    event-timed loop of launches measures the host (printed beside).
+    Bound: bytes, operations (bf16 tensor cores; f32 CUDA cores) or the
+    SFU (4 transcendental functions a unit at 16 a clock an SM), the
+    largest. `defines` picks a build variant."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dt, name, tol in ((torch.bfloat16, "bf16", 1e-2),
                           (torch.float32, "f32", 1e-4)):
-        args = k2_scale_inputs(torch, dt)
+        args = k2_scale_inputs(torch, dt, cx=cx)
         packs = [ek.pack_fold_weights(*a[2:]) for a in args]
         run = lambda a, w: ek.lstm_fold_cuda(*a, packed=w, defines=defines)
+        frame = lambda: [run(a, w) for a, w in zip(args, packs)]
         err = errm = 0.0
         per = []
         for (h, hw), a, w in zip(K2_SCALES, args, packs):
@@ -186,60 +226,60 @@ def check_lstm_fold(torch, ek, out, defines=()):
             torch.cuda.synchronize()
             e = (k - p).abs().max().item()
             if not e <= tol * max(1.0, p.abs().max().item()):
-                fail(f"lstm_fold {name} h={h}: max err {e}")
+                fail(f"lstm_fold {name} Cx={cx} h={h}: max err {e}")
             err = max(err, e)
             if name == "bf16":
                 m = ek.lstm_fold_bf16_ref(*a)
                 em = ((k - m).abs() - bf16_half_ulp(torch, m)).max().item()
                 if not em <= 1e-3 * max(1.0, m.abs().max().item()):
-                    fail(f"lstm_fold bf16 h={h}: {em} beyond half an ulp "
-                         "of the bf16 mirror")
+                    fail(f"lstm_fold bf16 Cx={cx} h={h}: {em} beyond half "
+                         "an ulp of the bf16 mirror")
                 errm = max(errm, em)
-            per.append(device_ms(torch, lambda: run(a, w), "lstm_fold"))
-        # the three launches of a frame: device time, and the event-timed
-        # loop (which the host's issue cost per call can set)
-        ms = device_ms(torch, lambda: [run(a, w) for a, w in zip(args, packs)],
-                       "lstm_fold")
-        loop = cuda_ms(lambda: [run(a, w) for a, w in zip(args, packs)],
-                       reps=20)
+            per.append(queued_ms(torch, lambda: run(a, w)))
+        ms = queued_ms(torch, frame)
+        loop = cuda_ms(frame, reps=20)
         plain = cuda_ms(lambda: [ek.lstm_fold_ref(*a) for a in args], reps=3)
         es = torch.finfo(dt).bits // 8
-        nbytes = sum(hw * (8 + 2 * h) * es + 4 * (8 * 8 * h + 8 * h
-                                                  + 3 * h * h + h)
+        nbytes = sum(hw * (cx + 2 * h) * es + 4 * (cx * 8 * h + 8 * h
+                                                   + 3 * h * h + h)
                      for h, hw in K2_SCALES)
-        flops = sum(hw * 2 * (8 * 6 * h + 3 * h * h) for h, hw in K2_SCALES)
+        flops = sum(hw * 2 * (cx * 6 * h + 3 * h * h) for h, hw in K2_SCALES)
         sfu = sum(hw * 2 * h * 4 for h, hw in K2_SCALES)
         bms, by = bound_ms(nbytes, flops, name)
         sfu_ms = sfu / (SFU_PER_CLK * sms * SM_CLOCK) * 1e3
         if sfu_ms > bms:
             bms, by = sfu_ms, "operations"
-        print(f"K2 lstm_fold_cm {name}: 3 scales/frame kernel {ms:.4f} ms "
-              f"of device time (h=16/32/64 {per[0]:.4f} / {per[1]:.4f} / "
-              f"{per[2]:.4f} ms; event-timed loop {loop:.4f} ms a frame), "
-              f"plain {plain:.4f} ms, bound {bms:.4f} ms "
-              f"({by}; bytes {nbytes / HBM_BPS * 1e3:.4f}, products "
+        print(f"K2 lstm_fold_cm {name} Cx={cx}: 3 scales/frame kernel "
+              f"{ms:.4f} ms of device time (h=16/32/64 {per[0]:.4f} / "
+              f"{per[1]:.4f} / {per[2]:.4f} ms, sum {sum(per):.4f}; "
+              f"event-timed loop {loop:.4f} ms a frame), plain {plain:.4f} "
+              f"ms, bound {bms:.4f} ms ({by}; bytes "
+              f"{nbytes / HBM_BPS * 1e3:.4f}, products "
               f"{flops / PEAK[name] * 1e3:.4f}, SFU {sfu_ms:.4f}), max err "
               f"{err:.3e}" + (f", beyond half an ulp of the bf16 mirror "
                               f"{errm:.3e}" if name == "bf16" else ""))
         out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         max_abs_err=err, scale_ms=per, loop_ms=loop)
+                         max_abs_err=err, scale_ms=per, loop_ms=loop, cx=cx)
 
 
-def k3_inputs(torch, dt, seed=4):
+def k3_inputs(torch, dt, seed=4, cx=8):
     """K3's full-size inputs (x, hc, ss, wg, wh, bg, wf, bf) at hp = 16,
-    HW = 480 * 640: dense random weights (the kernel takes any)."""
+    HW = 480 * 640, x with cx rows: dense random weights (the kernel takes
+    any)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     hp, hw = 16, H * W
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
-    return (rn(8, hw).to(dt), rn(4 * hp, hw).to(dt), rn(hp, hw).to(dt),
-            rn(8, 8 * hp) * 0.5, rn(2 * hp, 8 * hp) / (2 * hp) ** 0.5,
+    return (rn(cx, hw).to(dt), rn(4 * hp, hw).to(dt), rn(hp, hw).to(dt),
+            rn(cx, 8 * hp) * 0.5 * (8 / cx) ** 0.5,
+            rn(2 * hp, 8 * hp) / (2 * hp) ** 0.5,
             rn(8 * hp) * 0.1, rn(2 * hp, hp) / (2 * hp) ** 0.5,
             rn(hp) * 0.1)
 
 
-def check_lstm_carry_fold(torch, sk, out, defines=()):
-    """K3 at the full-size SingleScale shapes (hp = 16, HW = 480 * 640),
-    bf16 and f32, presence (1, 1), (1, 0) and (0, 1), weights packed
+def check_lstm_carry_fold(torch, sk, out, defines=(), cx=8):
+    """K3 at the full-size SingleScale shapes (hp = 16, HW = 480 * 640)
+    with cx input rows (event bins + 3; 8 on the 5-bin main path), bf16
+    and f32, presence (1, 1), (1, 0) and (0, 1), weights packed
     beforehand as the VO runtime packs them once. Against the plain
     version: max |kernel - plain| <= tol * max(1, max |plain|) over both
     outputs, tol = 1e-2 (bf16: bf16 operands and roundings of h', ss1 and
@@ -253,16 +293,17 @@ def check_lstm_carry_fold(torch, sk, out, defines=()):
     behind a looser bound; then within half an output ulp plus 1e-3 of
     scale (K2's rule). The free-running mirror's distance is printed
     beside. Timed with both modalities present (the main path's
-    case) by device time (profiler): the wrapper's host cost per call is
-    of the kernel's order, so an event-timed loop (printed beside)
-    measures the host. Bound: bytes, operations (bf16 tensor cores; f32
+    case) by CUDA events around launches queued behind a spin
+    (`queued_ms`): the wrapper's host cost per call is of the kernel's
+    order, so a plain event-timed loop (printed beside) measures the
+    host. Bound: bytes, operations (bf16 tensor cores; f32
     CUDA cores) or the SFU (5 transcendental functions a unit at 16 a
     clock an SM), the largest. `defines` picks a build variant."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     hp, hw = 16, H * W
     for dt, name, tol in ((torch.bfloat16, "bf16", 1e-2),
                           (torch.float32, "f32", 1e-4)):
-        base = k3_inputs(torch, dt, seed=4 if name == "bf16" else 5)
+        base = k3_inputs(torch, dt, seed=4 if name == "bf16" else 5, cx=cx)
         w = sk.pack_carry_fold_weights(*base[3:])
         run = lambda a: sk.lstm_carry_fold_cuda(*a, packed=w, defines=defines)
         err = errm = errf = 0.0
@@ -277,7 +318,8 @@ def check_lstm_carry_fold(torch, sk, out, defines=()):
                 kk, pp = kk.float(), pp.float()
                 e = (kk - pp).abs().max().item()
                 if not e <= tol * max(1.0, pp.abs().max().item()):
-                    fail(f"lstm_carry_fold {name} pres={pres}: max err {e}")
+                    fail(f"lstm_carry_fold {name} Cx={cx} pres={pres}: max "
+                         f"err {e}")
                 err = max(err, e)
             if name != "bf16":
                 continue
@@ -286,28 +328,28 @@ def check_lstm_carry_fold(torch, sk, out, defines=()):
             for kk, mm in zip(k, m):
                 em = beyond(kk.float(), mm)
                 if not em <= 1e-3 * max(1.0, mm.abs().max().item()):
-                    fail(f"lstm_carry_fold bf16 pres={pres}: {em} beyond "
-                         "half an ulp of the bf16 mirror")
+                    fail(f"lstm_carry_fold bf16 Cx={cx} pres={pres}: {em} "
+                         "beyond half an ulp of the bf16 mirror")
                 errm = max(errm, em)
             errf = max(errf, *(beyond(kk.float(), mm) for kk, mm in zip(
                 k, sk.lstm_carry_fold_bf16_ref(*a))))
             if pres == (1, 0):
                 ss1 = k[0]
         a = (*base, torch.ones(2, dtype=torch.int32, device="cuda"))
-        ms = device_ms(torch, lambda: run(a), "lstm_carry_fold")
+        ms = queued_ms(torch, lambda: run(a))
         loop = cuda_ms(lambda: run(a), reps=20)
         plain = cuda_ms(lambda: sk.lstm_carry_fold_ref(*a), reps=3)
         es = torch.finfo(dt).bits // 8
         wbytes = (w.frag.numel() * 2 + w.bias.numel() * 4 if name == "bf16"
                   else 4 * sum(t.numel() for t in w[:5]))
-        nbytes = hw * (8 + 5 * hp) * es + hw * 5 * hp * es + wbytes + 8
-        flops = hw * (2 * (8 + 2 * hp) * 8 * hp + 2 * 2 * 2 * hp * hp)
+        nbytes = hw * (cx + 5 * hp) * es + hw * 5 * hp * es + wbytes + 8
+        flops = hw * (2 * (cx + 2 * hp) * 8 * hp + 2 * 2 * 2 * hp * hp)
         sfu_ms = hw * 2 * hp * 5 / (SFU_PER_CLK * sms * SM_CLOCK) * 1e3
         bms, by = bound_ms(nbytes, flops, name)
         if sfu_ms > bms:
             bms, by = sfu_ms, "operations"
-        print(f"K3 lstm_carry_fold_cm {name}: kernel {ms:.4f} ms of device "
-              f"time (event-timed loop {loop:.4f} ms a launch), plain "
+        print(f"K3 lstm_carry_fold_cm {name} Cx={cx}: kernel {ms:.4f} ms of "
+              f"device time (event-timed loop {loop:.4f} ms a launch), plain "
               f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; bytes "
               f"{nbytes / HBM_BPS * 1e3:.4f}, products "
               f"{flops / PEAK[name] * 1e3:.4f}, SFU {sfu_ms:.4f}), max err "
@@ -315,7 +357,25 @@ def check_lstm_carry_fold(torch, sk, out, defines=()):
                               f"{errm:.3e} stage by stage, {errf:.3e} "
                               "free-running" if name == "bf16" else ""))
         out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         max_abs_err=err, loop_ms=loop)
+                         max_abs_err=err, loop_ms=loop, cx=cx)
+
+
+BIN_CXS = (4, 13, 18, 64)    # 1, 10, 15 and 61 event bins + 3 image channels
+
+
+def check_enc_bins(torch, ek, sk, k2, k3):
+    """K2 and K3 at the input row counts of other event-bin counts
+    (`BIN_CXS`: the instances of two and three x k-steps, and the run-time
+    one at Cx = 64), each checked and timed as at Cx = 8; each one's bf16
+    and f32 ms, bound and error go into k2["bins"] / k3["bins"]."""
+    for cx in BIN_CXS:
+        o2, o3 = {}, {}
+        check_lstm_fold(torch, ek, o2, cx=cx)
+        check_lstm_carry_fold(torch, sk, o3, cx=cx)
+        for out, o in ((k2, o2), (k3, o3)):
+            out.setdefault("bins", {})[cx] = {
+                n: {k: o[n][k] for k in ("ms", "bound_ms", "max_abs_err")}
+                for n in ("bf16", "f32")}
 
 
 K3_VARIANTS = (             # (label, -D defines of csrc/lstm_carry_fold.cu)
@@ -582,10 +642,11 @@ def ptxas_lines(log):
 
 
 def ab_measure(torch):
-    """One side of `--ab`: device times (profiler) in the tree whose
-    rampvo_tpu_torch is imported, each through the wrapper as that tree
-    defines it: K7, K2 and K3 (K2 and K3 with their weights packed
-    beforehand where the tree packs them), and the folded layout's
+    """One side of `--ab`: device times in the tree whose rampvo_tpu_torch
+    is imported, each through the wrapper as that tree defines it: K7
+    (profiler), K2 and K3 at Cx = 8 with their weights packed beforehand
+    (`queued_ms`; K2 each scale and the frame's three launches), and the
+    folded layout's
     correlation `corr_lattice2_stacked(folded=True)` on the synthetic
     lattice (every kernel of the call: the band kernel and its PyTorch
     finish, or the folded kernel)."""
@@ -605,22 +666,18 @@ def ab_measure(torch):
             a = synthetic_corr_train(torch, dt, coords=coords)[:6]
             res[f"K7 {name} {coords}"] = device_ms(
                 torch, lambda: ctk.corr_train_cuda(*a), "corr_train_fwd")
-        per = []
-        for a in k2_scale_inputs(torch, dt):
-            kw = ({"packed": ek.pack_fold_weights(*a[2:])}
-                  if hasattr(ek, "pack_fold_weights") else {})
-            per.append(device_ms(torch, lambda: ek.lstm_fold_cuda(*a, **kw),
-                                 "lstm_fold"))
-        for (h, _), ms in zip(K2_SCALES, per):
-            res[f"K2 {name} h={h}"] = ms
-        res[f"K2 {name} frame"] = sum(per)
+        args = k2_scale_inputs(torch, dt)
+        packs = [ek.pack_fold_weights(*a[2:]) for a in args]
+        for (h, _), a, w in zip(K2_SCALES, args, packs):
+            res[f"K2 {name} h={h}"] = queued_ms(
+                torch, lambda: ek.lstm_fold_cuda(*a, packed=w))
+        res[f"K2 {name} frame"] = queued_ms(torch, lambda: [
+            ek.lstm_fold_cuda(*a, packed=w) for a, w in zip(args, packs)])
         a = (*k3_inputs(torch, dt),
              torch.ones(2, dtype=torch.int32, device="cuda"))
-        kw = ({"packed": sk.pack_carry_fold_weights(*a[3:8])}
-              if hasattr(sk, "pack_carry_fold_weights") else {})
-        res[f"K3 {name}"] = device_ms(
-            torch, lambda: sk.lstm_carry_fold_cuda(*a, **kw),
-            "lstm_carry_fold")
+        w = sk.pack_carry_fold_weights(*a[3:8])
+        res[f"K3 {name}"] = queued_ms(
+            torch, lambda: sk.lstm_carry_fold_cuda(*a, packed=w))
         s = synthetic_lattice(torch, dt)
         res[f"folded corr {name}"] = device_ms(
             torch, lambda: bk.corr_lattice2_stacked(*s, folded=True), "")
@@ -653,7 +710,7 @@ def compare_ab(parent: str):
         if res.returncode != 0 or not line:
             fail(f"A/B side in {tree}: rc {res.returncode}\n{res.stderr[-3000:]}")
         runs.append(json.loads(line[0][3:]))
-    print("A/B, device ms a launch (K2 frame: the three scales' sum; "
+    print("A/B, device ms a launch (K2 frame: the three scales' launches; "
           "folded corr: every kernel of the call) (parent, change, change, "
           "parent):")
     for key in runs[0]:
@@ -1265,17 +1322,22 @@ def check_corr_train(torch, ctk, out_f, out_b, defines=()):
 # phases 3 and 4: the VO slice
 # ---------------------------------------------------------------------------
 
-def make_frames(torch, n, ht, wd, seed, device):
+def make_frames(torch, n, ht, wd, seed, device, bins=5):
     g = torch.Generator(device=device).manual_seed(seed)
-    return [(torch.rand(1, ht, wd, 5, generator=g, device=device),
+    return [(torch.rand(1, ht, wd, bins, generator=g, device=device),
              torch.rand(1, ht, wd, 3, generator=g, device=device))
             for _ in range(n)]
 
 
-def check_small_slice(torch, input_mode, layout="fused3"):
+def check_small_slice(torch, input_mode, layout="fused3", bins=5,
+                      damp=False):
     """The same small f32 VO run on the card (kernels) and on the CPU (plain
-    versions) under CORR_LAYOUT `layout`, 12 frames and an events-only
-    frame after frame 5:
+    versions) under CORR_LAYOUT `layout` at `bins` event bins, 12 frames
+    and an events-only frame after frame 5 (`damp`: the flow head's
+    weight scaled by 0.1, as the CPU parity tests scale it; the 10-bin
+    random SingleScale network is chaotic without it: on the CPU alone a
+    1e-6 relative change of the events moves the init frame's poses by
+    0.32):
     identical keyframe bookkeeping at every frame, poses within 1e-2. The
     card runs float32 convolutions and products without TF32
     (torch.backends.cudnn.allow_tf32 and cuda.matmul.allow_tf32 are set
@@ -1292,11 +1354,16 @@ def check_small_slice(torch, input_mode, layout="fused3"):
                    OPTIMIZATION_WINDOW=4, PATCH_LIFETIME=3, KEYFRAME_INDEX=2,
                    MIXED_PRECISION=False, PROBE_THRESH=-1.0, MAX_FRAMES=64,
                    MEM=16, CORR_LAYOUT=layout)
-    net = init_weights(VONet(input_mode), torch.Generator().manual_seed(5))
-    vos = {d: RampVO(cfg, net, ht=ht, wd=wd, device=d, seed=1)
-           for d in ("cpu", "cuda")}
+    net = init_weights(VONet(input_mode, evs_ch=bins),
+                       torch.Generator().manual_seed(5))
+    if damp:
+        with torch.no_grad():
+            net.update.d[1].weight.mul_(0.1)
+    vos = {d: RampVO(cfg, net, num_event_bins=bins, ht=ht, wd=wd, device=d,
+                     seed=1) for d in ("cpu", "cuda")}
     intr = torch.tensor([50.0, 50.0, wd / 2, ht / 2])
-    for f, (ev, im) in enumerate(make_frames(torch, 12, ht, wd, 7, "cpu")):
+    for f, (ev, im) in enumerate(make_frames(torch, 12, ht, wd, 7, "cpu",
+                                             bins)):
         for d, vo in vos.items():
             vo(f, ev.to(d), im.to(d), [True], intr.to(d))
             if f == 5:
@@ -1307,9 +1374,10 @@ def check_small_slice(torch, input_mode, layout="fused3"):
                 and torch.equal(a.cell_valid, b.cell_valid.cpu()))
         dp = (a.poses[:a.counter] - b.poses[:a.counter].cpu()).abs().max().item()
         if not same or not dp <= 1e-2:
-            fail(f"small {input_mode} {layout} slice cuda vs cpu, frame "
-                 f"{f}: same={same} dpose={dp}")
-    print(f"small {input_mode} slice 64x96 M=8 CORR_LAYOUT {layout}: cuda == "
+            fail(f"small {input_mode} {layout} {bins}-bin slice cuda vs cpu, "
+                 f"frame {f}: same={same} dpose={dp}")
+    print(f"small {input_mode} slice 64x96 M=8 {bins} bins CORR_LAYOUT "
+          f"{layout}: cuda == "
           f"cpu bookkeeping over 12 frames + 1 events-only, max pose diff "
           f"{dp:.3e}")
 
@@ -1471,11 +1539,12 @@ CORR_WRAPPER = {"fused3": "corr_lattice", "fused4": "corr_lattice_cb",
 
 
 def bench_vo(torch, mode, layout, K, thresh=0.0, event_bias=True,
-             gradient=False):
+             gradient=False, bins=5):
     """A RampVO at chunk=K on bench.py's VOConfig (KEYFRAME_THRESH
     `thresh`, GRADIENT_BIAS `gradient`) at 480x640, M=96, bf16,
-    CORR_LAYOUT `layout`, seeded weights, patches selected by event
-    density or, without `event_bias`, at random or by image gradient."""
+    CORR_LAYOUT `layout`, seeded weights for `bins` event bins, patches
+    selected by event density or, without `event_bias`, at random or by
+    image gradient."""
     from rampvo_tpu_torch.models.vonet import VONet, init_weights
     from rampvo_tpu_torch.vo import RampVO, VOConfig
 
@@ -1483,9 +1552,11 @@ def bench_vo(torch, mode, layout, K, thresh=0.0, event_bias=True,
                    MIXED_PRECISION=True, PROBE_THRESH=-1.0,
                    KEYFRAME_THRESH=thresh, CORR_LAYOUT=layout,
                    GRADIENT_BIAS=gradient)
-    net = init_weights(VONet(mode), torch.Generator().manual_seed(0))
-    return RampVO(cfg, net, input_mode=mode, ht=H, wd=W, device="cuda",
-                  seed=0, chunk=K, event_bias=event_bias)
+    net = init_weights(VONet(mode, evs_ch=bins),
+                       torch.Generator().manual_seed(0))
+    return RampVO(cfg, net, input_mode=mode, num_event_bins=bins, ht=H,
+                  wd=W, device="cuda", seed=0, chunk=K,
+                  event_bias=event_bias)
 
 
 def copy_into(vo, state, tlist):
@@ -2239,6 +2310,204 @@ def run_selection_training(torch, counters, card):
 # phase 5d: the native event-stack builder (host C++)
 # ---------------------------------------------------------------------------
 
+BINS = 10            # Cx = 13: the kernels' two-k-step instances, not 8k
+
+
+def bins_eager(torch, counters, mode, frames, intr):
+    """bench.py's VO at BINS event bins, eager, over `frames` with every
+    launch counter set to 0 just before and read just after: the encoder
+    kernel of the mode once an encoded frame (K2 3 launches, K3 1), K1
+    12 + (n - 8) times, nothing else; finite poses. Returns (the RampVO,
+    median steady ms/frame, counts)."""
+    vo = bench_vo(torch, mode, "fused3", 1, bins=BINS)
+    n = len(frames)
+    for c in counters.values():
+        c.launches = 0
+    times = []
+    for f, (ev, im) in enumerate(frames):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vo(f, ev, im, [True], intr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    counts = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    enc = "K2" if mode == "MultiScale" else "K3"
+    want.update({"K1": 12 + (n - 8), enc: (3 if enc == "K2" else 1) * n})
+    st = vo.state
+    if counts != want or st.n != n \
+            or not bool(torch.isfinite(st.poses[:st.counter]).all()):
+        fail(f"bins {mode}: launches {counts}, want {want}, n {st.n}")
+    return vo, sorted(times[10:])[len(times[10:]) // 2], counts
+
+
+def run_bins_phase(torch, p2, counters, card):
+    """Phase 5e: the VO path at BINS = 10 event bins (x of Cx = 13 rows
+    into K2 and K3, which are not a multiple of 8). Small 64x96 runs on the
+    card against the CPU in both modes; then bench.py's VOConfig
+    (480x640, M=96, bf16, fused3): MultiScale 40 eager frames (launch
+    counts, ms/frame), a chunk=8 graph twin from the eager state held
+    bit for bit over two replays, then timed in 40-frame turns against
+    the same graph at 5 bins (10, 5, 5, 10) and both profiled over one
+    replay; SingleScale
+    24 eager frames; P2's host µs a launch beside each timing;
+    terminate()'s trajectories finite. The small runs damp the flow head
+    (`check_small_slice`)."""
+    intr = torch.tensor([320.0, 320.0, W / 2, H / 2], device="cuda")
+    for mode in ("MultiScale", "SingleScale"):
+        check_small_slice(torch, mode, bins=BINS, damp=True)
+    K = CHUNK_K
+    frames = make_frames(torch, FRAMES + 2 * K, H, W, 11, "cuda", BINS)
+    host = [p2_host_us(torch, p2)]
+    eager, ms_eager, counts = bins_eager(torch, counters, "MultiScale",
+                                         frames[:FRAMES], intr)
+    print(f"bins MultiScale {BINS} bins eager on {card}: {FRAMES} frames, "
+          f"median steady frame {ms_eager:.3f} ms (frames 10..); launches "
+          f"{counts}")
+    graph = bench_vo(torch, "MultiScale", "fused3", K, bins=BINS)
+    copy_into(graph, eager.state, eager.tlist)
+    worst, _ = drive_twins(torch, eager, graph, frames[FRAMES:FRAMES + 2 * K],
+                           intr, FRAMES)
+    check_twins(f"bins MultiScale {BINS} bins chunk={K}", worst,
+                graph._vo_chunk.captured, "MultiScale", "fused3", K)
+    # the same graph at 5 bins, initialized on 5-bin frames, as the
+    # control: 40-frame turns 10, 5, 5, 10 bins, then a profiled replay
+    g5 = bench_vo(torch, "MultiScale", "fused3", K)
+    f5 = make_frames(torch, FRAMES, H, W, 11, "cuda")
+    for f, (ev, im) in enumerate(f5):
+        g5(f, ev, im, [True], intr)
+    g5.flush()
+    ms, prof = {10: [], 5: []}, {}
+    for bins in (10, 5, 5, 10):
+        vo, fr = (graph, frames[:FRAMES]) if bins == 10 else (g5, f5)
+        host.append(p2_host_us(torch, p2))
+        ms[bins].append(timed_frames(torch, vo, fr, intr, 1000 * len(host)))
+    for bins, vo, fr in ((10, graph, frames), (5, g5, f5)):
+        prof[bins] = profile_frames(torch, vo, fr[:K], intr, min(ms[bins]))
+    for vo in (eager, graph, g5):
+        traj, _ = vo.terminate()
+        if not (abs(traj).max() < 1e6):
+            fail("bins MultiScale: non-finite trajectory")
+    del eager, graph, g5
+    torch.cuda.empty_cache()
+    host.append(p2_host_us(torch, p2))
+    ss, ms_ss, counts = bins_eager(torch, counters, "SingleScale",
+                                   frames[:24], intr)
+    traj, _ = ss.terminate()
+    if not (abs(traj).max() < 1e6):
+        fail("bins SingleScale: non-finite trajectory")
+    print(f"bins SingleScale {BINS} bins eager on {card}: 24 frames, median "
+          f"steady frame {ms_ss:.3f} ms (frames 10..); launches {counts}")
+    print(f"bins phase on {card} ({BINS} bins, Cx = {BINS + 3}): MultiScale "
+          f"eager {ms_eager:.3f} ms/frame; graph == eager bit for bit over 2 "
+          f"replays; graph ms/frame in {FRAMES}-frame turns, 10 / 5 / 5 / 10 "
+          f"bins: {ms[10][0]:.3f} / {ms[5][0]:.3f} / {ms[5][1]:.3f} / "
+          f"{ms[10][1]:.3f}; device busy of a profiled replay 10 bins "
+          f"{prof[10][0]:.3f} ms/frame ({100 * prof[10][2]:.1f}% of its span, "
+          f"{prof[10][1]:.0f} kernels/frame), 5 bins {prof[5][0]:.3f} "
+          f"({100 * prof[5][2]:.1f}%, {prof[5][1]:.0f}); SingleScale eager "
+          f"{ms_ss:.3f} ms/frame; P2 host issue "
+          f"{' / '.join(f'{h:.2f}' for h in host)} us a launch")
+
+
+GEOM_FRAMES, GEOM_PATCHES, GEOM_E = 15, 80, 18000   # the training recipe's
+
+
+def run_geometry_phase(torch, card):
+    """Phase 5f: the projective ops and the Lie groups on the card against
+    the CPU at the training recipe's edge count (15 frames of 80 patches,
+    E = 18000 edges, 3x3 patches, seeded): `geometry.transform` plain, with
+    depth and validity, translation-only, and with jacobian=True (coords,
+    validity, Ji, Jj, Jz), `flow_mag` and `point_cloud`; exp, log, inv,
+    mul and act of SO3, SE3, RxSO3 and Sim3 on E tangents. Within 1e-5 of
+    each output's scale, float32, but Sim3 in float64: its exponential's
+    (exp(sigma) - 1) / sigma (the JAX package's formula and thresholds)
+    loses ~eps / |sigma| in float32 just above the Taylor threshold
+    (1.5e-4 against float64 at sigma = 1.2e-4 on the CPU alone), so two
+    devices' float32 results differ by that much; their float32
+    difference is printed beside. The CUDA transform with Jacobians runs
+    inside `utils.Timer` (CUDA events on the card)."""
+    from rampvo_tpu_torch import geometry as geo
+    from rampvo_tpu_torch import lie
+    from rampvo_tpu_torch.utils import Timer
+
+    g = torch.Generator().manual_seed(21)
+    N, n = GEOM_FRAMES, GEOM_FRAMES * GEOM_PATCHES
+    poses = lie.SE3.exp(0.05 * torch.randn(1, N, 6, generator=g))
+    intr = torch.tensor([320.0, 320.0, W / 2, H / 2]).expand(1, N, 4)
+    xy = torch.rand(1, n, 2, 1, 1, generator=g) * torch.tensor(
+        [W - 40.0, H - 40.0])[:, None, None] + 20.0
+    off = torch.stack(torch.meshgrid(torch.arange(3.0) - 1,
+                                     torch.arange(3.0) - 1, indexing="xy"))
+    patches = torch.cat([xy + off, 0.5 + 1.5 * torch.rand(
+        1, n, 1, 3, 3, generator=g)], dim=2)
+    kk = torch.randint(0, n, (GEOM_E,), generator=g)
+    ii = kk // GEOM_PATCHES
+    jj = (ii + torch.randint(1, N, (GEOM_E,), generator=g)) % N
+    worst = {}
+
+    def err(a, b):
+        """Max |a - b| over nested lists of tensors (a on the card), and
+        whether each tensor's is within 1e-5 of b's scale."""
+        a, b = ([v] if torch.is_tensor(v) else v for v in (a, b))
+        e, ok = 0.0, True
+        for x, y in zip(a, b):
+            if not torch.is_tensor(x):
+                ei, oi = err(x, y)
+            else:
+                x, y = x.cpu().double(), y.double()
+                ei = (x - y).abs().max().item()
+                oi = ei <= 1e-5 * max(1.0, y.abs().max().item())
+            e, ok = max(e, ei), ok and oi
+        return e, ok
+
+    def check(what, a, b):
+        e, ok = err(a, b)
+        if not ok:
+            fail(f"geometry phase {what}: cuda vs cpu max err {e}")
+        worst[what] = e
+
+    dev = lambda *xs: [x.cuda() for x in xs]
+    cpu_args = (poses, patches, intr, ii, jj, kk)
+    cuda_args = (lie.SE3(poses.data.cuda()), *dev(patches, intr, ii, jj, kk))
+    for opts in ({}, {"depth": True, "valid": True}, {"tonly": True}):
+        check(f"transform {opts}", geo.transform(*cuda_args, **opts),
+              geo.transform(*cpu_args, **opts))
+    res = {}
+    for _ in range(3):
+        with Timer("transform_jacobian", results=res, device="cuda"):
+            got = geo.transform(*cuda_args, jacobian=True)
+    check("transform jacobian", got, geo.transform(*cpu_args, jacobian=True))
+    check("flow_mag", geo.flow_mag(*cuda_args), geo.flow_mag(*cpu_args))
+    ix = torch.arange(N)
+    check("point_cloud", geo.point_cloud(cuda_args[0], cuda_args[1][:, :N],
+                                         cuda_args[2], ix.cuda()),
+          geo.point_cloud(poses, patches[:, :N], intr, ix))
+    for name in ("SO3", "SE3", "RxSO3", "Sim3"):
+        G = getattr(lie, name)
+        xi = 0.8 * torch.randn(GEOM_E, G.K, generator=g)
+        xi2 = 0.5 * torch.randn(GEOM_E, G.K, generator=g)
+        pts = torch.randn(GEOM_E, 3, generator=g)
+
+        def ops_of(x, y, p):
+            X, Y = G.exp(x), G.exp(y)
+            return [X.data, X.log(), X.inv().data, (X * Y).data, X.act(p)]
+
+        if name == "Sim3":
+            sim3_f32 = err(ops_of(xi.cuda(), xi2.cuda(), pts.cuda()),
+                           ops_of(xi, xi2, pts))[0]
+            xi, xi2, pts = xi.double(), xi2.double(), pts.double()
+        check(name, ops_of(xi.cuda(), xi2.cuda(), pts.cuda()),
+              ops_of(xi, xi2, pts))
+    print(f"geometry phase on {card}: cuda == cpu within 1e-5 of scale at "
+          f"E = {GEOM_E} (Sim3 in float64), max errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; Sim3 in float32 {sim3_f32:.2e}"
+          + "; transform(jacobian=True) on the card (Timer, CUDA events) "
+          + " / ".join(f"{1e3 * x:.3f}" for x in res["transform_jacobian"])
+          + " ms")
+
+
 def run_native_phase(card):
     """data/native.py on this machine's host: g++ builds
     csrc/event_ops.cpp (the phase fails if it cannot); on an in-memory
@@ -2548,6 +2817,9 @@ def main() -> int:
                     "training step")
     ap.add_argument("--native-only", action="store_true",
                     help="only the native event-builder phase (5d)")
+    ap.add_argument("--bins-only", action="store_true",
+                    help="only K2 and K3 at every checked Cx and the "
+                    "event-bins phase (5e)")
     ap.add_argument("--ab", metavar="DIR",
                     help="only time K7, K2, K3 and the folded correlation "
                     "in the tree at DIR and in this one, in turns")
@@ -2632,6 +2904,14 @@ def main() -> int:
                 "K5": pk.corr_lattice_paired, "K6": ck.corr_lattice_cb,
                 "K7": ctk.corr_train_cuda, "K8": ctk.corr_train_bwd_cuda,
                 "P1": p1.dynlane, "P2": p2.grid_probe}
+    if args.bins_only:
+        k2, k3 = {}, {}
+        check_lstm_fold(torch, ek, k2)
+        check_lstm_carry_fold(torch, sk, k3)
+        check_enc_bins(torch, ek, sk, k2, k3)
+        run_bins_phase(torch, p2, counters, card)
+        run_geometry_phase(torch, card)
+        return 0
     if args.pose_only or args.selection_only or args.native_only:
         if args.native_only:
             run_native_phase(card)
@@ -2652,6 +2932,7 @@ def main() -> int:
     check_corr_lattice(torch, ck, k1)
     check_corr_layouts(torch, ck, pk, bk, lay)
     check_lstm_carry_fold(torch, sk, k3)
+    check_enc_bins(torch, ek, sk, k2, k3)
     check_corr_train(torch, ctk, k7, k8)
     check_probes(torch, p1, p2, counters, probes)
     for mode in ("MultiScale", "SingleScale"):
@@ -2688,6 +2969,8 @@ def main() -> int:
     run_pose_phase(torch, counters, card)
     run_selection_phase(torch, p2, counters, frames, intr, card)
     run_native_phase(card)
+    run_bins_phase(torch, p2, counters, card)
+    run_geometry_phase(torch, card)
     del frames
     torch.cuda.empty_cache()
     n_tr, _, _, _ = run_train_main_path(torch, counters)
@@ -2703,11 +2986,13 @@ def main() -> int:
              launches=n_ms["K1"], **ker, **k1["bf16"]),
         dict(name="lstm_fold_cm", source="rampvo_tpu_torch/csrc/lstm_fold.cu",
              replaces="rampvo_tpu/ops/encoder_pallas.py:77",
-             launches=n_ms["K2"], **ker, **k2["bf16"]),
+             launches=n_ms["K2"], **ker, **k2["bf16"],
+             checked_cx=[8, *BIN_CXS], by_cx=k2["bins"]),
         dict(name="lstm_carry_fold_cm",
              source="rampvo_tpu_torch/csrc/lstm_carry_fold.cu",
              replaces="rampvo_tpu/ops/encoder_pallas.py:235",
-             launches=n_ss["K3"], **ker, **k3["bf16"]),
+             launches=n_ss["K3"], **ker, **k3["bf16"],
+             checked_cx=[8, *BIN_CXS], by_cx=k3["bins"]),
         dict(name="corr_folded", source="rampvo_tpu_torch/csrc/corr_bands.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:461",
              launches=paths["MultiScale", "folded"]["K4f"], **ker,

@@ -39,8 +39,11 @@ from ..vo import RampVO, VOConfig
 from . import eval_utils as eu
 
 
-def load_intrinsics(K_path=None):
-    """(ref: evaluate.py:44-70)"""
+def load_intrinsics(K_path=None, resize_to=None):
+    """(fx, fy, cx, cy) from a scene's K.yaml, or the defaults without one
+    (ref: evaluate.py:44-70). `resize_to` (width, height) moves the
+    principal point by half the padding from the camera's resolution to
+    that size, as a centred pad does."""
     if K_path is None or not os.path.exists(K_path):
         print("Using default intrinsics", [320, 320, 320, 240])
         return (320.0, 320.0, 320.0, 240.0)
@@ -49,27 +52,35 @@ def load_intrinsics(K_path=None):
     with open(K_path) as f:
         data = yaml.safe_load(f)
     fx, fy, cx, cy = data["cam0"]["intrinsics"]
+    if resize_to is not None:
+        slack = np.array(resize_to) - np.array(data["cam0"]["resolution"])
+        cx += slack[0] / 2
+        cy += slack[1] / 2
     print(f"Using intrinsics from {K_path}", (fx, fy, cx, cy))
     return (fx, fy, cx, cy)
 
 
-def load_params(weights, input_mode: str) -> VONet:
-    """A `VONet` for `input_mode` from a `VONet` (returned as it is), a
-    path or a loaded dict. A path is a .pth file or a training checkpoint
-    directory (its newest step). The two .pth formats are told apart by
-    content: a training checkpoint ({"params", "opt", "step"}, written by
-    `cli.train`) gives its "params"; anything else is a reference
-    state_dict and goes through `load_pth`."""
+def load_params(weights, input_mode: str,
+                num_event_bins: int = 5) -> VONet:
+    """A `VONet` for `input_mode` and `num_event_bins` event channels from
+    a `VONet` (returned as it is), a path or a loaded dict. A path is a
+    .pth file or a training checkpoint directory (its newest step). The
+    two .pth formats are told apart by content: a training checkpoint
+    ({"params", "opt", "step"}, written by `cli.train`) gives its
+    "params"; anything else is a reference state_dict and goes through
+    `load_pth`."""
     if isinstance(weights, VONet):
-        if weights.input_mode != input_mode:
-            raise ValueError(f"network is {weights.input_mode}, config "
-                             f"{input_mode}")
+        if (weights.input_mode, weights.evs_ch) != (input_mode,
+                                                    num_event_bins):
+            raise ValueError(
+                f"network is {weights.input_mode} with {weights.evs_ch} "
+                f"event bins, config {input_mode} with {num_event_bins}")
         return weights
     if isinstance(weights, str):
         weights = restore_checkpoint(weights)
     if not isinstance(weights, dict):
         raise ValueError(f"unsupported weights: {weights!r}")
-    net = VONet(input_mode)
+    net = VONet(input_mode, evs_ch=num_event_bins)
     net.load_state_dict(weights["params"] if "params" in weights
                         else load_pth(weights, input_mode))
     return net
@@ -192,7 +203,7 @@ def evaluate(net, trials=1, downsample_fact=1, config_VO=None, eval_cfg=None,
 
     if config_VO is None:
         config_VO = VOConfig()
-    net = load_params(net, input_mode)
+    net = load_params(net, input_mode, train_["num_event_bins"])
 
     results = {}
     for scene in test_["test_split"]:

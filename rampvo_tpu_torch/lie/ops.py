@@ -1,97 +1,30 @@
-"""SE3 operations on raw tensors (port of rampvo_tpu/lie/quaternion.py and
-the SE3 part of rampvo_tpu/lie/ops.py).
+"""Lie-group operations on raw tensors (port of rampvo_tpu/lie/ops.py;
+the quaternion primitives live in lie/quaternion.py).
 
-Layouts (trailing dim): quaternion [qx, qy, qz, qw]; SE3
-[tx, ty, tz, qx, qy, qz, qw]; SE3 tangent [tau, phi]. Everything
-broadcasts over leading dims. Small-angle Taylor branches are selected
-with `where` on inputs masked away from the unsafe denominators.
+Layouts (trailing dim): SO3 [qx, qy, qz, qw] (tangent phi); SE3
+[tx, ty, tz, qx, qy, qz, qw] (tangent [tau, phi]); RxSO3 [qx, qy, qz,
+qw, s] (tangent [phi, sigma]); Sim3 [tx, ty, tz, qx, qy, qz, qw, s]
+(tangent [tau, phi, sigma]). Everything broadcasts over leading dims.
+Small-angle Taylor branches are selected with `where` on inputs masked
+away from the unsafe denominators, so values and gradients stay finite.
 """
 
 from __future__ import annotations
 
 import torch
 
-
-def _split(x):
-    return x.unbind(-1)
-
-
-def quat_mul(a, b):
-    """Hamilton product a (x) b for xyzw quaternions."""
-    ax, ay, az, aw = _split(a)
-    bx, by, bz, bw = _split(b)
-    return torch.stack(
-        [
-            aw * bx + ax * bw + ay * bz - az * by,
-            aw * by + ay * bw + az * bx - ax * bz,
-            aw * bz + az * bw + ax * by - ay * bx,
-            aw * bw - ax * bx - ay * by - az * bz,
-        ],
-        dim=-1,
-    )
-
-
-def quat_inv(q):
-    """Conjugate (== inverse for unit quaternions)."""
-    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
-
-
-def _cross(a, b):
-    a, b = torch.broadcast_tensors(a, b)
-    return torch.linalg.cross(a, b, dim=-1)
-
-
-def quat_act(q, v):
-    """Rotate 3-vector(s) v by unit quaternion q (two-cross-product form)."""
-    qv = q[..., :3]
-    qw = q[..., 3:4]
-    uv = 2.0 * _cross(qv, v)
-    return v + qw * uv + _cross(qv, uv)
-
-
-def quat_to_matrix(q):
-    """Unit quaternion -> 3x3 rotation matrix."""
-    x, y, z, w = _split(q)
-    xx, yy, zz = x * x, y * y, z * z
-    xy, xz, yz = x * y, x * z, y * z
-    wx, wy, wz = w * x, w * y, w * z
-    m = torch.stack(
-        [
-            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
-            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
-            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
-        ],
-        dim=-1,
-    )
-    return m.reshape(m.shape[:-1] + (3, 3))
-
-
-def quat_exp(phi):
-    """Rotation vector -> unit quaternion."""
-    theta_sq = (phi * phi).sum(-1, keepdim=True)
-    small = theta_sq < 1e-8
-    theta = torch.sqrt(torch.where(small, torch.ones_like(theta_sq), theta_sq))
-    theta_p4 = theta_sq * theta_sq
-    imag_taylor = 0.5 - theta_sq / 48.0 + theta_p4 / 3840.0
-    real_taylor = 1.0 - theta_sq / 8.0 + theta_p4 / 384.0
-    imag = torch.where(small, imag_taylor, torch.sin(0.5 * theta) / theta)
-    real = torch.where(small, real_taylor, torch.cos(0.5 * theta))
-    return torch.cat([imag * phi, real], dim=-1)
-
-
-def quat_log(q):
-    """Unit quaternion -> rotation vector (principal branch)."""
-    qv = q[..., :3]
-    qw = q[..., 3:4]
-    sign = torch.where(qw < 0, -1.0, 1.0).to(q.dtype)
-    qv = qv * sign
-    qw = qw * sign
-    norm_sq = (qv * qv).sum(-1, keepdim=True)
-    small = norm_sq < 1e-12
-    norm = torch.sqrt(torch.where(small, torch.ones_like(norm_sq), norm_sq))
-    scale_exact = 2.0 * torch.atan2(norm, qw) / norm
-    scale_taylor = 2.0 / qw * (1.0 - norm_sq / (3.0 * qw * qw))
-    return torch.where(small, scale_taylor, scale_exact) * qv
+from .quaternion import (
+    _cross,
+    _safe_sqrt,
+    _split,
+    quat_act,
+    quat_exp,
+    quat_inv,
+    quat_log,
+    quat_mul,
+    quat_normalize,
+    quat_to_matrix,
+)
 
 
 def hat_so3(phi):
@@ -100,6 +33,13 @@ def hat_so3(phi):
     o = torch.zeros_like(x)
     m = torch.stack([o, -z, y, z, o, -x, -y, x, o], dim=-1)
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+so3_exp = quat_exp
+so3_log = quat_log
+so3_inv = quat_inv
+so3_mul = quat_mul
+so3_act = quat_act
 
 
 def _so3_left_jacobian_terms(phi):
@@ -203,3 +143,129 @@ def se3_adjT(g, x):
 def se3_retr(g, xi):
     """Left retraction exp(xi) o g (ba_cuda.cu:156-174)."""
     return se3_mul(se3_exp(xi), g)
+
+
+def se3_matrix(g):
+    """4x4 homogeneous matrix."""
+    t, q = g[..., :3], g[..., 3:7]
+    top = torch.cat([quat_to_matrix(q), t[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=g.dtype,
+                          device=g.device).expand(top.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_normalize(g):
+    return torch.cat([g[..., :3], quat_normalize(g[..., 3:7])], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# RxSO3 (rotation + scale)
+# ---------------------------------------------------------------------------
+
+def rxso3_exp(xi):
+    """Tangent [phi, sigma] -> [q, s]."""
+    return torch.cat([quat_exp(xi[..., :3]), torch.exp(xi[..., 3:4])], dim=-1)
+
+
+def rxso3_log(g):
+    return torch.cat([quat_log(g[..., :4]), torch.log(g[..., 4:5])], dim=-1)
+
+
+def rxso3_inv(g):
+    return torch.cat([quat_inv(g[..., :4]), 1.0 / g[..., 4:5]], dim=-1)
+
+
+def rxso3_mul(a, b):
+    return torch.cat([quat_mul(a[..., :4], b[..., :4]),
+                      a[..., 4:5] * b[..., 4:5]], dim=-1)
+
+
+def rxso3_act(g, p):
+    return g[..., 4:5] * quat_act(g[..., :4], p)
+
+
+# ---------------------------------------------------------------------------
+# Sim3 (similarity transform)
+# ---------------------------------------------------------------------------
+
+def _sim3_W_terms(phi, sigma):
+    """Coefficients (A, B, C) of W = C I + A phi^ + B phi^^ for Sim3 exp,
+    with the four cases (sigma -> 0, theta -> 0, both, neither) selected
+    by `where` after the unsafe denominators are masked to 1, at the JAX
+    package's thresholds (|sigma| < 1e-5, theta^2 < 1e-8)."""
+    theta_sq = (phi * phi).sum(-1, keepdim=True)
+    theta = _safe_sqrt(theta_sq)
+    s = torch.exp(sigma)
+    small_sigma = sigma.abs() < 1e-5
+    small_theta = theta_sq < 1e-8
+    one = torch.ones_like
+    sig = torch.where(small_sigma, one(sigma), sigma)
+    th = torch.where(small_theta, one(theta), theta)
+    th_sq = torch.where(small_theta, one(theta_sq), theta_sq)
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    c = th_sq + sig * sig
+
+    # C = (s - 1) / sigma  (Taylor: 1 + sigma/2 + sigma^2/6)
+    C = torch.where(small_sigma, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                    (s - 1.0) / sig)
+    a_small_sigma = (1.0 - cos_t) / th_sq
+    a_small_theta = ((sig - 1.0) * s + 1.0) / (sig * sig)
+    a_general = (s * sin_t * sig + (1.0 - s * cos_t) * th) / (th * c)
+    A = torch.where(
+        small_sigma,
+        torch.where(small_theta, torch.full_like(theta, 0.5), a_small_sigma),
+        torch.where(small_theta, a_small_theta, a_general))
+    b_small_sigma = (theta - sin_t) / (th_sq * th)
+    b_small_theta = (s * (0.5 * sig * sig + 1.0) - 1.0 - sig * s) / (
+        sig * sig * sig)
+    b_general = (C - ((s * cos_t - 1.0) * sig + s * sin_t * th) / c) / th_sq
+    B = torch.where(
+        small_sigma,
+        torch.where(small_theta, torch.full_like(theta, 1.0 / 6.0),
+                    b_small_sigma),
+        torch.where(small_theta, b_small_theta, b_general))
+    return A, B, C
+
+
+def sim3_exp(xi):
+    """Tangent [tau, phi, sigma] -> [t, q, s]."""
+    tau, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6:7]
+    A, B, C = _sim3_W_terms(phi, sigma)
+    c1 = _cross(phi, tau)
+    c2 = _cross(phi, c1)
+    return torch.cat([C * tau + A * c1 + B * c2, quat_exp(phi),
+                      torch.exp(sigma)], dim=-1)
+
+
+def _sim3_apply_W_inv(phi, sigma, t):
+    """W^-1 t by solving the (tiny, batched) 3x3 system."""
+    A, B, C = _sim3_W_terms(phi, sigma)
+    eye = torch.eye(3, dtype=t.dtype, device=t.device)
+    P = hat_so3(phi)
+    Wm = C[..., None] * eye + A[..., None] * P + B[..., None] * (P @ P)
+    return torch.linalg.solve(Wm, t[..., None])[..., 0]
+
+
+def sim3_log(g):
+    t, q, s = g[..., :3], g[..., 3:7], g[..., 7:8]
+    phi = quat_log(q)
+    sigma = torch.log(s)
+    return torch.cat([_sim3_apply_W_inv(phi, sigma, t), phi, sigma], dim=-1)
+
+
+def sim3_mul(a, b):
+    ta, qa, sa = a[..., :3], a[..., 3:7], a[..., 7:8]
+    tb, qb, sb = b[..., :3], b[..., 3:7], b[..., 7:8]
+    return torch.cat([sa * quat_act(qa, tb) + ta, quat_mul(qa, qb), sa * sb],
+                     dim=-1)
+
+
+def sim3_inv(g):
+    t, q, s = g[..., :3], g[..., 3:7], g[..., 7:8]
+    qi = quat_inv(q)
+    return torch.cat([-quat_act(qi, t) / s, qi, 1.0 / s], dim=-1)
+
+
+def sim3_act(g, p):
+    t, q, s = g[..., :3], g[..., 3:7], g[..., 7:8]
+    return s * quat_act(q, p) + t

@@ -39,6 +39,7 @@ class VONet(nn.Module):
                  img_ch: int = 3, P: int = 3):
         super().__init__()
         self.input_mode = input_mode
+        self.evs_ch = evs_ch            # event bins the encoder takes
         self.patchify = Patchifier(input_mode, evs_ch, img_ch)
         self.update = Update(P)
 

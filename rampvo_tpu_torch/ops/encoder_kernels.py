@@ -5,7 +5,8 @@ driver).
 
 Per scale, one fused pass computes both modality LSTMs (zero-carry single
 step) and the two super-state folds composed into one matmul, channel-major
-([C, Hs*Ws]): x [8, HW] + ss [h, HW] -> ss' [h, HW]. The weight
+([C, Hs*Ws]): x [Cx, HW] + ss [h, HW] -> ss' [h, HW], Cx = event bins + 3
+image channels (8 at the default 5 bins), any Cx >= 1. The weight
 composition is plain tensor algebra in float32; the two pyramid heads stay
 torch.nn convolutions (models/encoders.py).
 
@@ -68,10 +69,11 @@ class FoldWeights(NamedTuple):
     """One scale's K2 weights (for one mask value): the composed float32
     weights, which the plain version and the f32 kernel read, and what
     the bf16 kernel reads -- `frag`, bf16 pairs in mma fragment order (the
-    gate B fragments [2h/8 chunks][i, g, o][32 lanes][2], then the fold's
-    [3h/16 k-steps][h/8 n-tiles][32 lanes][4]), and `bias`, float32 (the
-    gate biases [2h/8][3][8], then bf)."""
-    wg: torch.Tensor    # [8, 8h]
+    gate B fragments [2h/8 chunks][i, g, o][Cp/8 k8 steps][32 lanes][2],
+    wg's rows zero-padded to Cp = 8 ceil(Cx/8), then the fold's [3h/16
+    k-steps][h/8 n-tiles][32 lanes][4]), and `bias`, float32 (the gate
+    biases [2h/8][3][8], then bf)."""
+    wg: torch.Tensor    # [Cx, 8h]
     bg: torch.Tensor    # [8h]
     wf: torch.Tensor    # [3h, h] over rows [ss | h_ev | h_im]
     bf: torch.Tensor    # [h]
@@ -82,15 +84,18 @@ class FoldWeights(NamedTuple):
 @torch.no_grad()
 def pack_fold_weights(wg, bg, wf, bf) -> FoldWeights:
     """The kernel's weights from `lstm_fold_ref`'s (csrc/lstm_fold.cu).
-    Lane l = 4 g + t of an m16n8k8 gate chunk c holds B[2t + i][g] =
-    wg[2t + i, o h + 8c + g] for i = 0, 1; of an m16n8k16 fold k-step ks
-    and n-tile nt, B[2t + i (+ 8)][g] = wf[16 ks + 2t + i (+ 8), 8 nt + g].
+    With wg's rows zero-padded to Cp = 8 ceil(Cx/8), lane l = 4 g + t of
+    the m16n8k8 gate chunk c, k8 step ks holds B[2t + i][g] = wg[8 ks + 2t
+    + i, o h + 8c + g] for i = 0, 1; of an m16n8k16 fold k-step ks and
+    n-tile nt, B[2t + i (+ 8)][g] = wf[16 ks + 2t + i (+ 8), 8 nt + g].
     Constant for a frozen network: pack once (`multiscale_weights`)."""
     wg, bg, wf, bf = (t.float().contiguous() for t in (wg, bg, wf, bf))
     h = wf.shape[1]
     nch = 2 * h // 8
-    gate = torch.stack([wg[:, o * h:(o + 2) * h] for o in GATE_BLOCKS])
-    gate = gate.reshape(3, 8, nch, 8).permute(2, 0, 3, 1)  # [c, G, g, k]
+    wgp = F.pad(wg, (0, 0, 0, -wg.shape[0] % 8))          # [Cp, 8h]
+    gate = torch.stack([wgp[:, o * h:(o + 2) * h] for o in GATE_BLOCKS])
+    gate = gate.reshape(3, -1, 4, 2, nch, 8).permute(
+        4, 0, 1, 5, 2, 3)                                # [c, G, ks, g, t, i]
     fold = wf.reshape(3 * h // 16, 2, 4, 2, h // 8, 8).permute(
         0, 4, 5, 2, 1, 3)                                # [ks, nt, g, t, k8, i]
     frag = torch.cat([gate.reshape(-1), fold.reshape(-1)]).to(
@@ -101,7 +106,7 @@ def pack_fold_weights(wg, bg, wf, bf) -> FoldWeights:
     return FoldWeights(wg, bg, wf, bf, frag, bias)
 
 
-_SIG = {"lstm_fold_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+_SIG = {"lstm_fold_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_void_p]}
 
 
@@ -132,19 +137,21 @@ def lstm_fold_cuda(x_cm, ss_cm, wg, bg, wf, bf, packed=None, defines=()):
     `pack_fold_weights(wg, bg, wf, bf)`, packed here when None; `defines`
     picks a build variant."""
     refuse_autograd("lstm_fold", x_cm, ss_cm, wg, bg, wf, bf)
-    Cp, HW = x_cm.shape
+    Cx, HW = x_cm.shape
     h = ss_cm.shape[0]
     dt = ss_cm.dtype
-    if Cp != 8 or h not in (16, 32, 64):
-        raise ValueError(f"lstm_fold: needs Cp == 8, h in 16/32/64 ({Cp}, {h})")
+    if Cx < 1 or h not in (16, 32, 64):
+        raise ValueError(f"lstm_fold: needs Cx >= 1, h in 16/32/64 "
+                         f"({Cx}, {h})")
     if dt not in (torch.float32, torch.bfloat16) or x_cm.dtype != dt:
         raise TypeError("lstm_fold: x and ss must share a f32/bf16 dtype")
     if not (x_cm.is_cuda and ss_cm.is_cuda):
         raise ValueError("lstm_fold: inputs must be contiguous CUDA")
     w = pack_fold_weights(wg, bg, wf, bf) if packed is None else packed
-    if w.wg.shape != (8, 8 * h) or w.wf.shape != (3 * h, h) \
+    Cp = Cx + -Cx % 8
+    if w.wg.shape != (Cx, 8 * h) or w.wf.shape != (3 * h, h) \
             or w.bg.numel() != 8 * h or w.bf.numel() != h \
-            or w.frag.numel() != 48 * h + 3 * h * h \
+            or w.frag.numel() != 6 * h * Cp + 3 * h * h \
             or w.bias.numel() != 7 * h or ss_cm.shape[1] != HW:
         raise ValueError("lstm_fold: weight or state shape")
     for t in (x_cm, ss_cm, *w):
@@ -156,7 +163,7 @@ def lstm_fold_cuda(x_cm, ss_cm, wg, bg, wf, bf, packed=None, defines=()):
     lib = build.load("lstm_fold", _SIG, defines)
     err = lib.lstm_fold_launch(
         x_cm.data_ptr(), ss_cm.data_ptr(), *(t.data_ptr() for t in w),
-        out.data_ptr(), HW, h, int(dt == torch.bfloat16), sm_count(dev),
+        out.data_ptr(), HW, Cx, h, int(dt == torch.bfloat16), sm_count(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "lstm_fold_launch")

@@ -5,7 +5,8 @@ the channel-major state and the encode function).
 
 One fused pass per frame computes both modality LSTMs as a carried step
 (recurrent h @ W_hh, forget gate) and the two presence-gated shared folds,
-channel-major: x [8, HW] + hc [4hp, HW] + ss [hp, HW] -> (ss', hc'). The
+channel-major: x [Cx, HW] + hc [4hp, HW] + ss [hp, HW] -> (ss', hc'), Cx =
+event bins + 3 image channels (8 at the default 5 bins), any Cx >= 1. The
 hidden size h = 15 is padded to hp = 16 per gate; the padded rows stay
 exactly zero (zero weights and biases, zero initial carry). The presence
 flags are a device int32[2]: no host sync per frame. The two BasicEncoder4
@@ -89,10 +90,11 @@ class CarryFoldWeights(NamedTuple):
     """K3's weights: the contract's float32 weights, which the plain
     version and the f32 kernel read, and what the bf16 kernel reads --
     `frag`, bf16 pairs in mma fragment order (per 8-unit chunk of
-    [h_ev | h_im] and gate i, f, g, o: the x step's [32 lanes][2], then the
-    h steps' [2 k-steps][32 lanes][4]; then the fold's [2 k-steps: ss,
+    [h_ev | h_im] and gate i, f, g, o: the x steps' [Cp/8 k8 steps][32
+    lanes][2], wg's rows zero-padded to Cp = 8 ceil(Cx/8), then the h
+    steps' [2 k-steps][32 lanes][4]; then the fold's [2 k-steps: ss,
     data][2 n-tiles][32 lanes][4]), and `bias`, float32 (bg, then bf)."""
-    wg: torch.Tensor    # [8, 8hp]
+    wg: torch.Tensor    # [Cx, 8hp]
     wh: torch.Tensor    # [2hp, 8hp]
     bg: torch.Tensor    # [8hp]
     wf: torch.Tensor    # [2hp, hp] over rows [ss | data]
@@ -104,15 +106,18 @@ class CarryFoldWeights(NamedTuple):
 @torch.no_grad()
 def pack_carry_fold_weights(wg, wh, bg, wf, bf) -> CarryFoldWeights:
     """The kernel's weights from `lstm_carry_fold_ref`'s
-    (csrc/lstm_carry_fold.cu). With column n = G 2hp + 8c + g of gate G,
-    chunk c: lane l = 4 g + t of the x step holds wg[2t + i, n] (i = 0,
-    1); of h k-step ks, wh[16 ks + 2t + i (+ 8), n]; of fold k-step ks and
-    n-tile nt, wf[16 ks + 2t + i (+ 8), 8 nt + g]. Constant for a frozen
-    network: pack once (`singlescale_weights`)."""
+    (csrc/lstm_carry_fold.cu). With wg's rows zero-padded to Cp = 8
+    ceil(Cx/8) and column n = G 2hp + 8c + g of gate G, chunk c: lane l =
+    4 g + t of x k8 step kx holds wg[8 kx + 2t + i, n] (i = 0, 1); of h
+    k-step ks, wh[16 ks + 2t + i (+ 8), n]; of fold k-step ks and n-tile
+    nt, wf[16 ks + 2t + i (+ 8), 8 nt + g]. Constant for a frozen network:
+    pack once (`singlescale_weights`)."""
     wg, wh, bg, wf, bf = (t.float().contiguous() for t in (wg, wh, bg, wf, bf))
     hp = wf.shape[1]
     nch = 2 * hp // 8
-    gx = wg.reshape(4, 2, 4, nch, 8).permute(3, 2, 4, 0, 1)   # [c, G, g, t, i]
+    wgp = F.pad(wg, (0, 0, 0, -wg.shape[0] % 8))            # [Cp, 8hp]
+    gx = wgp.reshape(-1, 4, 2, 4, nch, 8).permute(
+        4, 3, 0, 5, 1, 2)                             # [c, G, kx, g, t, i]
     gh = wh.reshape(2, 2, 4, 2, 4, nch, 8).permute(
         5, 4, 0, 6, 2, 1, 3)                          # [c, G, ks, g, t, j, i]
     gate = torch.cat([gx.reshape(nch, 4, -1), gh.reshape(nch, 4, -1)], 2)
@@ -124,7 +129,7 @@ def pack_carry_fold_weights(wg, wh, bg, wf, bf) -> CarryFoldWeights:
 
 
 _SIG = {"lstm_carry_fold_launch": [ctypes.c_void_p] * 13
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
 
 def lstm_carry_fold_cuda(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
@@ -136,12 +141,12 @@ def lstm_carry_fold_cuda(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
     source (see its head)."""
     refuse_autograd("lstm_carry_fold", x_cm, hc_cm, ss_cm, wg, wh, bg, wf,
                     bf, pres)
-    Cp, HW = x_cm.shape
+    Cx, HW = x_cm.shape
     hp = ss_cm.shape[0]
     dt = ss_cm.dtype
-    if Cp != 8 or hp != 16:
-        raise ValueError(f"lstm_carry_fold: needs Cp == 8, hp == 16 "
-                         f"({Cp}, {hp})")
+    if Cx < 1 or hp != 16:
+        raise ValueError(f"lstm_carry_fold: needs Cx >= 1, hp == 16 "
+                         f"({Cx}, {hp})")
     if dt not in (torch.float32, torch.bfloat16) or x_cm.dtype != dt \
             or hc_cm.dtype != dt:
         raise TypeError("lstm_carry_fold: x, hc and ss must share a f32/bf16 "
@@ -156,10 +161,11 @@ def lstm_carry_fold_cuda(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
     else:
         w = packed
     pres = pres.to(torch.int32).contiguous()
-    if w.wg.shape != (8, 8 * hp) or w.wh.shape != (2 * hp, 8 * hp) \
+    Cp = Cx + -Cx % 8
+    if w.wg.shape != (Cx, 8 * hp) or w.wh.shape != (2 * hp, 8 * hp) \
             or w.bg.numel() != 8 * hp or w.wf.shape != (2 * hp, hp) \
             or w.bf.numel() != hp or w.bias.numel() != 9 * hp \
-            or w.frag.numel() != (8 + 2 * hp) * 8 * hp + 2 * hp * hp \
+            or w.frag.numel() != (Cp + 2 * hp) * 8 * hp + 2 * hp * hp \
             or pres.numel() != 2 or hc_cm.shape != (4 * hp, HW) \
             or ss_cm.shape[1] != HW:
         raise ValueError("lstm_carry_fold: weight or state shape")
@@ -174,7 +180,7 @@ def lstm_carry_fold_cuda(x_cm, hc_cm, ss_cm, wg, wh, bg, wf, bf, pres,
     err = lib.lstm_carry_fold_launch(
         x_cm.data_ptr(), hc_cm.data_ptr(), ss_cm.data_ptr(),
         *(t.data_ptr() for t in w), pres.data_ptr(), oss.data_ptr(),
-        ohc.data_ptr(), HW, hp, int(dt == torch.bfloat16), sm_count(dev),
+        ohc.data_ptr(), HW, Cx, hp, int(dt == torch.bfloat16), sm_count(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "lstm_carry_fold_launch")

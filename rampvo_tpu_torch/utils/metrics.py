@@ -108,3 +108,31 @@ def rot_error_per_axis(
     err = (ang_est - ang_ref + np.pi) % (2 * np.pi) - np.pi
     return np.rad2deg(np.mean(np.abs(err), axis=0))
 
+
+
+def interpolate_poses(poses: np.ndarray, target_timestamps,
+                      original_timestamps):
+    """Linear position + slerp rotation interpolation of a (x y z xyzw)
+    pose list onto new timestamps, clamped to the first / last pose
+    outside the original span (ref: ramp/utils.py:586-629)."""
+    from scipy.spatial.transform import Rotation, Slerp
+
+    poses = np.asarray(poses, float)
+    tt = np.asarray(target_timestamps, float)
+    ot = np.asarray(original_timestamps, float)
+    out = []
+    for t in tt:
+        i0 = int(np.searchsorted(ot, t)) - 1
+        i1 = i0 + 1
+        if i1 >= len(ot):
+            out.append(poses[i0])
+            continue
+        if i0 < 0:
+            out.append(poses[i1])
+            continue
+        a = (t - ot[i0]) / (ot[i1] - ot[i0])
+        xyz = poses[i0, :3] + a * (poses[i1, :3] - poses[i0, :3])
+        rots = Rotation.from_quat(poses[[i0, i1], 3:7])
+        q = Slerp([ot[i0], ot[i1]], rots)(t).as_quat()
+        out.append(np.concatenate([xyz, q]))
+    return np.stack(out)

@@ -856,8 +856,9 @@ class RampVO:
         if input_mode != vonet.input_mode:
             raise ValueError(f"input_mode {input_mode} but the network is "
                              f"{vonet.input_mode}")
-        if num_event_bins != 5:
-            raise NotImplementedError("the port runs 5 event bins")
+        if num_event_bins != vonet.evs_ch:
+            raise ValueError(f"num_event_bins {num_event_bins} but the "
+                             f"network takes {vonet.evs_ch} event channels")
         self.cfg = cfg
         self.device = resolve_device(device)
         # a copy of its own: moving the caller's module to the device

@@ -349,19 +349,21 @@ def test_state_dict_roundtrip(nets):
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke, with jax, flax
     and rampvo_tpu blocked succeeds; so does it with the host file
-    libraries h5py, hdf5plugin, PIL, cv2 and yaml and the training
-    loggers' tensorboard and wandb blocked (the card's machine has none of
-    some of them), which the port imports only inside the functions that
-    use them. The walk reaches the training and layout slices' modules,
-    the probes, pose prediction, the evaluation fleet, the TartanEvent
-    entry point and the native event builders."""
+    libraries h5py, hdf5plugin, PIL, cv2 and yaml, the training loggers'
+    tensorboard and wandb, and matplotlib blocked (the card's machine has
+    none of some of them), which the port imports only inside the
+    functions that use them. The walk reaches the training and layout
+    slices' modules, the probes, pose prediction, the evaluation fleet,
+    the TartanEvent entry point, the native event builders, the Lie
+    groups, the event sequence and the seeding, timing and viz
+    utilities."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'rampvo_tpu', 'h5py', 'hdf5plugin', 'PIL', 'cv2', 'yaml',"
-        " 'tensorboard', 'wandb'):\n"
+        " 'tensorboard', 'wandb', 'matplotlib'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import rampvo_tpu_torch\n"
@@ -383,5 +385,7 @@ def test_port_imports_no_jax():
                 "ops.corr_band_kernels", "probes.dynlane",
                 "probes.grid_overhead", "vo.pose_prediction",
                 "parallel.eval_fleet", "cli.evaluate_tartanevent",
-                "data.native"):
+                "data.native", "lie.groups", "lie.quaternion",
+                "data.event_sequence", "utils.seeding", "utils.timing",
+                "utils.viz"):
         assert "rampvo_tpu_torch." + mod in lines, mod
