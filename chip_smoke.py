@@ -15,6 +15,8 @@
     python3 chip_smoke.py --bins-only      # only K2/K3 at every checked Cx,
                                            # the 10-bin path (5e) and the
                                            # geometry and Lie groups (5f)
+    python3 chip_smoke.py --truth-only     # only ground-truth tracking (5g)
+                                           # and learned weights (5h)
     python3 chip_smoke.py --ab DIR         # K7, K2, K3 and the folded
                                            # correlation here and in the
                                            # tree at DIR, in turns
@@ -71,8 +73,17 @@ rows into K2 and K3): small CUDA-vs-CPU runs in both modes, MultiScale
 40 eager frames and a chunk=8 graph twin bit for bit, SingleScale 24
 eager frames, launch counts and ms/frame (`run_bins_phase`); (5f)
 geometry.transform with Jacobians and the Lie groups on the card
-against the CPU at E = 18000 (`run_geometry_phase`); (6) the training
-main path: 3 optimizer steps of
+against the CPU at E = 18000 (`run_geometry_phase`); (5g) the VO with
+ground-truth update targets on the synthetic curved trajectory, full
+windows, the sliding window and an evicting case, each ATE below its
+bound, K1 never launched (`run_tracking_phase`); (5h) the learned-weights
+check: 40 training steps from the JAX test's initial network on the
+in-memory synthetic scene (the loss must fall), the checkpoint saved and
+loaded back through the evaluation CLI's loader, four times; the mean
+trained ATE below 0.75 of the initial network's (`run_overfit_phase`);
+both run the drivers of tests/test_torch_tracking.py and
+tests/test_torch_overfit.py; (6) the training main path: 3 optimizer
+steps of
 the MultiScale recipe (config_net/MultiScale_TartanEvent.json) at
 480x640 through the training CLI's loop on an in-memory 30-voxel window
 of the same scene, with launch counts, a checkpoint round trip, s/step,
@@ -2556,6 +2567,156 @@ def run_native_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phases 5g and 5h: the port against ground truth and learned weights
+# ---------------------------------------------------------------------------
+
+def port_tests():
+    """The port's test modules whose drivers the card phases run (they
+    hold what the CPU tests run, and need no JAX; importing them needs
+    pytest): tests/ at the end of the path, so that none of its names
+    shadows another module."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import test_torch_overfit
+    import test_torch_tracking
+
+    return test_torch_tracking, test_torch_overfit
+
+
+def launches(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def run_tracking_phase(torch, counters, card):
+    """tests/test_torch_tracking.py's cases on the card: RampVO with the
+    ground-truth oracle over the 18 frames of the synthetic curved
+    trajectory at 60x80, M=16, float32, then the terminal updates with
+    the oracle (`track`). Each case must initialize, keep every frame
+    where nothing may be evicted (evict at least one in the evicting
+    case) and land below its ATE bound; the oracle replaces the
+    correlation in every update, the terminal ones too, so K1 never
+    launches, and K2 launches 3 times a frame."""
+    tt, _ = port_tests()
+    nf = tt.N_FRAMES
+    for case, spec in tt.CASES.items():
+        reset(counters)
+        t = time.perf_counter()
+        r = tt.track(case, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        counts = launches(counters)
+        want = dict.fromkeys(counters, 0)
+        want["K2"] = 3 * nf
+        kept = r["evicted"] > 0 if spec[4] > 0 else r["n"] == nf
+        print(f"tracking phase on {card}, case {case} (ow, pl, rw, finals, "
+              f"KEYFRAME_THRESH = {spec[:5]}), 60x80 M=16 f32: ATE "
+              f"{r['ate']:.6g} against the bound {r['bound']:.6g} "
+              f"({spec[5]} x extent {r['extent']:.6g}), n {r['n']}, "
+              f"{r['evicted']} evicted, {sec:.2f} s, launches {counts}")
+        if counts != want:
+            fail(f"tracking {case}: launch counts {counts}, want {want}")
+        if not (r["initialized"] and r["frames"] == nf and kept
+                and r["ate"] < r["bound"]):
+            fail(f"tracking {case}: {r}")
+
+
+OVERFIT_RUNS = 4
+
+
+def run_overfit_phase(torch, counters, card):
+    """tests/test_torch_overfit.py's whole twin on the card, on the scene
+    held in memory (this machine has no h5py): 40 steps of the recipe
+    (TrainForward(n_frames=8, M=16, steps=10), AdamW 1e-4, clip 0.1) from
+    the JAX test's initial network (`overfit_init`, the CPU twin's), the
+    weights saved by save_checkpoint and loaded back by
+    cli.evaluate.load_params, then cli.evaluate.evaluate_sequence (the
+    JAX test's VOConfig, 480x640 padded frames, evaluation seed 0, the
+    JAX test's one trial). The card's atomics make each training a
+    different draw of the recipe's outcome, so it trains OVERFIT_RUNS
+    times from the same network, windows and draws (PERF.md, PR 12). Fails
+    unless every run's last loss is finite and below its first, K7 and
+    K8 launched once per unrolled step of training, the loaded weights
+    equal the trained ones, every evaluation tracked every frame (K1: the
+    init burst, one update a later frame, the 12 terminal updates; K2: 3
+    a voxel) to a finite ATE, and the mean trained ATE is below 0.75 of
+    the initial network's."""
+    import numpy as np
+
+    from rampvo_tpu_torch.cli.evaluate import evaluate_sequence
+
+    _, to = port_tests()
+    scene = to.memory_scene()
+    data, ref, stamps = to.memory_eval_data(scene)
+    n_vo = int(sum(d["mask"][0] for d in data))
+    want_train = dict.fromkeys(counters, 0)
+    want_train.update({"K7": to.STEPS * to.UNROLL, "K8": to.STEPS * to.UNROLL})
+    want_eval = dict.fromkeys(counters, 0)
+    want_eval.update({"K1": 12 + (n_vo - 8) + 12, "K2": 3 * len(data)})
+
+    def ate_of(net):
+        reset(counters)
+        t = time.perf_counter()
+        ate, *_ = evaluate_sequence(to.eval_config(), net,
+                                    to.eval_cfg("memory"), data, ref,
+                                    stamps, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        sec, counts = time.perf_counter() - t, launches(counters)
+        if counts != want_eval:
+            fail(f"overfit evaluation: launch counts {counts}, "
+                 f"want {want_eval}")
+        if not (np.isfinite(ate) and 0 < ate < 1000.0):
+            fail(f"overfit evaluation: ATE {ate}")
+        return ate, sec
+
+    runs = []
+    for _ in range(OVERFIT_RUNS):
+        ds = to.MemoryDataset(scene)    # its window sampler from its seed
+        reset(counters)
+        with tempfile.TemporaryDirectory() as tmp:
+            r = to.overfit_twin(ds, "cuda", tmp)
+        torch.cuda.synchronize()
+        counts, losses = launches(counters), r["losses"]
+        if counts != want_train:
+            fail(f"overfit training: launch counts {counts}, "
+                 f"want {want_train}")
+        if not (np.isfinite(losses[-1]) and losses[-1] < losses[0]):
+            fail(f"overfit: losses {losses}")
+        r["ate"], r["eval_s"] = ate_of(r["trained"])
+        runs.append(r)
+        print("overfit phase losses: "
+              + " ".join(f"{v:.6g}" for v in losses))
+    ate0, eval0 = ate_of(runs[0]["initial"])
+    ates = [r["ate"] for r in runs]
+    mean = float(np.mean(ates))
+    sec = sorted(s for r in runs for s in r["seconds"][1:])
+    print(f"overfit phase on {card} (tests/test_torch_overfit.py's recipe "
+          f"from the JAX test's initial network, 60x80 scene of 40 frames "
+          f"in memory, {len(ds)} windows, {OVERFIT_RUNS} trainings): "
+          f"losses " + ", ".join(f"{r['losses'][0]:.6g} -> "
+                                 f"{r['losses'][-1]:.6g}" for r in runs)
+          + f"; median {sec[len(sec) // 2]:.4f} s/step (first steps "
+          + ", ".join(f"{r['seconds'][0]:.3f}" for r in runs)
+          + f" s); training launches {want_train} each; ATE (seed 0) "
+          f"initial {ate0:.6g}, trained "
+          + ", ".join(f"{a:.6g}" for a in ates)
+          + " (ratios " + ", ".join(f"{a / ate0:.4f}" for a in ates)
+          + f"), mean {mean:.6g} (ratio {mean / ate0:.4f}, bound 0.75); "
+          f"evaluations ({len(data)} voxels, {n_vo} frames) "
+          + ", ".join(f"{s:.2f}" for s in [r["eval_s"] for r in runs]
+                      + [eval0])
+          + f" s, launches {want_eval} each")
+    if not mean < 0.75 * ate0:
+        fail(f"overfit: mean trained ATE {mean:.6g} not below 0.75 x "
+             f"initial {ate0:.6g} (ratio {mean / ate0:.4f})")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: training
 # ---------------------------------------------------------------------------
 
@@ -2820,6 +2981,9 @@ def main() -> int:
     ap.add_argument("--bins-only", action="store_true",
                     help="only K2 and K3 at every checked Cx and the "
                     "event-bins phase (5e)")
+    ap.add_argument("--truth-only", action="store_true",
+                    help="only the ground-truth tracking (5g) and the "
+                    "learned-weights (5h) phases")
     ap.add_argument("--ab", metavar="DIR",
                     help="only time K7, K2, K3 and the folded correlation "
                     "in the tree at DIR and in this one, in turns")
@@ -2912,6 +3076,10 @@ def main() -> int:
         run_bins_phase(torch, p2, counters, card)
         run_geometry_phase(torch, card)
         return 0
+    if args.truth_only:
+        run_tracking_phase(torch, counters, card)
+        run_overfit_phase(torch, counters, card)
+        return 0
     if args.pose_only or args.selection_only or args.native_only:
         if args.native_only:
             run_native_phase(card)
@@ -2972,6 +3140,9 @@ def main() -> int:
     run_bins_phase(torch, p2, counters, card)
     run_geometry_phase(torch, card)
     del frames
+    torch.cuda.empty_cache()
+    run_tracking_phase(torch, counters, card)
+    run_overfit_phase(torch, counters, card)
     torch.cuda.empty_cache()
     n_tr, _, _, _ = run_train_main_path(torch, counters)
     torch.cuda.empty_cache()

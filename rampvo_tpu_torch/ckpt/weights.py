@@ -153,25 +153,33 @@ def from_flax_params(variables, input_mode: str = "MultiScale"
     return out
 
 
-def load_pth(path_or_dict, input_mode: str) -> Dict[str, torch.Tensor]:
-    """A reference .pth (file path or already loaded dict) -> the port's
-    float32 VONet state_dict for `input_mode`, through the reference
-    loader's key hygiene. Raises on a key that no rule maps."""
-    if isinstance(path_or_dict, dict):
-        ckpt = path_or_dict
-    else:
-        # tensors, containers and numbers only: no code runs on load
-        ckpt = torch.load(path_or_dict, map_location="cpu", weights_only=True)
-    if "model_state_dict" in ckpt:
-        ckpt = ckpt["model_state_dict"]
+def conv_lstm_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX `ConvLSTMCell`'s {'params': {'Gates': {kernel, bias}}}
+    (numpy arrays) -> the port's `models.ConvLSTMCell` state_dict."""
+    tree = variables["params"] if "params" in variables else variables
+    g = tree["Gates"]
+    return {f"Gates.{leaf}": torch.tensor(_flax_to_torch(
+        np.asarray(g[name], np.float32)))
+        for leaf, name in _LEAF["conv"].items()}
+
+
+def map_state_dict(state_dict, input_mode: str):
+    """The reference loader's key hygiene on a reference state_dict (its
+    values tensors or arrays): "module." prefixes dropped, `update.lmbda`
+    and the MultiScale encoder's unused blocks skipped, every other key
+    checked against the port's VONet for `input_mode` (port of
+    rampvo_tpu/ckpt/torch_import.py::map_state_dict, which maps the same
+    keys into flax variables). Returns (the port's float32 state_dict,
+    skipped keys); raises on a key that no rule maps."""
     multiscale = input_mode == "MultiScale"
     rules = _rules(input_mode)
     out: Dict[str, torch.Tensor] = {}
-    for key, val in ckpt.items():
+    skipped = []
+    for key, val in state_dict.items():
         key = key.replace("module.", "")
-        if key == "update.lmbda":
-            continue
-        if multiscale and _UNUSED_MULTISCALE.match(key):
+        if key == "update.lmbda" or (multiscale
+                                     and _UNUSED_MULTISCALE.match(key)):
+            skipped.append(key)
             continue
         base, _, leaf = key.rpartition(".")
         if base not in rules or leaf not in _leaves(*rules[base]):
@@ -179,4 +187,19 @@ def load_pth(path_or_dict, input_mode: str) -> Dict[str, torch.Tensor]:
         out[key] = (val.detach().cpu().float()
                     if isinstance(val, torch.Tensor)
                     else torch.as_tensor(np.asarray(val, np.float32)))
-    return out
+    return out, skipped
+
+
+def load_pth(path_or_dict, input_mode: str) -> Dict[str, torch.Tensor]:
+    """A reference .pth (file path or already loaded dict) -> the port's
+    float32 VONet state_dict for `input_mode`, through the reference
+    loader's key hygiene (`map_state_dict`). Raises on a key that no rule
+    maps."""
+    if isinstance(path_or_dict, dict):
+        ckpt = path_or_dict
+    else:
+        # tensors, containers and numbers only: no code runs on load
+        ckpt = torch.load(path_or_dict, map_location="cpu", weights_only=True)
+    if "model_state_dict" in ckpt:
+        ckpt = ckpt["model_state_dict"]
+    return map_state_dict(ckpt, input_mode)[0]

@@ -5,7 +5,7 @@ hdf5plugin, PIL, cv2) are imported inside the functions that read files."""
 from .event_handle import H5EventHandle
 from .event_sequence import EventSequence
 from .events import Events
-from .loader import data_loader_all_events, normalize_image
+from .loader import data_loader_all_events, normalize_image, resize_input
 from .representations import EventToStack, EventsToVoxelGrid
 
 __all__ = [
@@ -16,4 +16,5 @@ __all__ = [
     "EventsToVoxelGrid",
     "data_loader_all_events",
     "normalize_image",
+    "resize_input",
 ]

@@ -54,6 +54,12 @@ def pad_or_resize(x: np.ndarray, ht: int = 480, wd: int = 640) -> np.ndarray:
     return out.reshape(x.shape[:-3] + (ht, wd, x.shape[-1]))
 
 
+def resize_input(image: np.ndarray, events: np.ndarray, ht: int = 480,
+                 wd: int = 640):
+    """`pad_or_resize` of an image and an event tensor to ht x wd."""
+    return pad_or_resize(image, ht, wd), pad_or_resize(events, ht, wd)
+
+
 def make_representation(cfg: dict):
     kind = cfg.get("event_representation", "stack")
     bins = cfg["data_loader"]["train"]["args"]["num_event_bins"]
@@ -135,11 +141,17 @@ def data_loader_all_events(
     return data_list, frame_indices
 
 
-def _voxels(event, rep, n_events_selected, image_files,
-            corresponding_timestamps, norm_to, intrinsics):
-    """The loader's per-voxel loop over an open event stream."""
+def _read_png(path):
     from PIL import Image
 
+    return np.asarray(Image.open(path))
+
+
+def _voxels(event, rep, n_events_selected, image_files,
+            corresponding_timestamps, norm_to, intrinsics,
+            read_image=_read_png):
+    """The loader's per-voxel loop over an open event stream; each entry
+    of `image_files` is read by `read_image`."""
     n_events = len(event.t)
     n_voxels = n_events // n_events_selected
     corr_events_timestamps = np.asarray(event.t[0:n_events:n_events_selected][1:])
@@ -163,7 +175,7 @@ def _voxels(event, rep, n_events_selected, image_files,
         ev = np.transpose(ev, (1, 2, 0))[None]  # [1, H, W, C]
 
         frame_ind = frame_of_voxel[i]
-        img = np.asarray(Image.open(image_files[frame_ind]))
+        img = read_image(image_files[frame_ind])
         if img.ndim == 2:
             img = np.stack([img] * 3, axis=-1)
         img = normalize_image(img[..., :3], norm_to)[None].astype(np.float16)

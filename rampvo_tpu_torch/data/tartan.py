@@ -61,6 +61,11 @@ class TartanEventDataset:
     """Loads pickled scene_info + per-scene events.h5/indices.txt and yields
     training windows (frame-graph flow sampling, ref: RGBDDataset.py:84-139)."""
 
+    # how a scene's image and depth entries are read (a subclass that
+    # holds a scene in memory replaces them)
+    read_image = staticmethod(image_read)
+    read_depth = staticmethod(depth_read)
+
     def __init__(self, config, path, step=0, crop_size=(480, 640),
                  just_validation=False, seed=0, fmin=10.0, fmax=75.0):
         train_cfg = config["data_loader"]["train"]["args"]
@@ -132,7 +137,8 @@ class TartanEventDataset:
 
             from .frame_graph import build_frame_graph
 
-            graph = build_frame_graph(poses, depths, intrinsics, depth_read)
+            graph = build_frame_graph(poses, depths, intrinsics,
+                                      self.read_depth)
             scene_info[scene] = {
                 "events": osp.join(scene, "events.h5"),
                 "images": images,
@@ -250,9 +256,9 @@ class TartanEventDataset:
             )
             mask.append(True)
 
-            img = image_read(info["images"][index_f])
+            img = self.read_image(info["images"][index_f])
             images.append(img.astype(np.float32))
-            depths.append(depth_read(info["depths"][index_f]))
+            depths.append(self.read_depth(info["depths"][index_f]))
             poses.append(info["poses"][index_f])
             intrinsics.append(info["intrinsics"][index_f])
 
@@ -279,8 +285,9 @@ class TartanEventDataset:
                 first = i1[index_f - 1] + seg * c
                 events.append(self._event_tensor(event, first, first + seg))
                 mask.append(c == self.n_events_in_between)
-            images.append(image_read(info["images"][index_f]).astype(np.float32))
-            depths.append(depth_read(info["depths"][index_f]))
+            images.append(
+                self.read_image(info["images"][index_f]).astype(np.float32))
+            depths.append(self.read_depth(info["depths"][index_f]))
             poses.append(info["poses"][index_f])
             intrinsics.append(info["intrinsics"][index_f])
             n_loaded += 1

@@ -26,6 +26,23 @@ def grad_clip(x):
     return _GradClip.apply(x)
 
 
+class _GradZero(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        drop = torch.isnan(g) | (g.abs() > 0.1)
+        return torch.where(drop, torch.zeros_like(g), g)
+
+
+def grad_zero(x):
+    """Identity whose backward zeroes NaN gradients and those above 0.1 in
+    magnitude (ref blocks.py:93-109)."""
+    return _GradZero.apply(x)
+
+
 class GradClip(nn.Module):
     """`grad_clip` as a module (the reference's GradientClip, which has no
     parameters)."""
@@ -81,6 +98,24 @@ class SoftAgg(nn.Module):
             return self.h(y).expand(NI, T, M, D).reshape(E, D)
 
         jx = ix.long() if precompacted else compact_ids(ix)
+        w = segment_softmax(self.g(x), jx, E, valid=valid)
+        y = segment_sum(self.f(x) * w, jx, E, valid=valid)
+        return self.h(y)[jx]
+
+
+class SoftAggBasic(nn.Module):
+    """SoftAgg with a scalar attention logit per row (ref blocks.py:52-69):
+    x [E, D], ix [E] group ids, `valid` as SoftAgg's."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.f = nn.Linear(dim, dim)
+        self.g = nn.Linear(dim, 1)
+        self.h = nn.Linear(dim, dim)
+
+    def forward(self, x, ix, valid=None):
+        E = x.shape[0]
+        jx = compact_ids(ix)
         w = segment_softmax(self.g(x), jx, E, valid=valid)
         y = segment_sum(self.f(x) * w, jx, E, valid=valid)
         return self.h(y)[jx]

@@ -416,3 +416,30 @@ class SingleScaleEncoder(nn.Module):
         x = torch.stack([saved[t] for t in sup]).permute(0, 3, 1, 2)
         return (self.fmap_encoder(x).permute(0, 2, 3, 1),
                 self.imap_encoder(x).permute(0, 2, 3, 1))
+
+
+class ConvLSTMCell(nn.Module):
+    """Convolutional LSTM cell (ref extractor.py:133-184, which defines it
+    and never runs it; kept for the JAX package's API). x [H, W, Cin],
+    state (h, c) each [H, W, hidden], channels-last as the JAX cell;
+    returns (h', (h', c')). `Gates` is the reference's convolution over
+    [x | h]; its gates split as i, f, o, g."""
+
+    def __init__(self, input_size: int, hidden: int, kernel_size: int = 3):
+        super().__init__()
+        self.hidden = hidden
+        self.Gates = nn.Conv2d(input_size + hidden, 4 * hidden, kernel_size,
+                               padding=kernel_size // 2)
+
+    def forward(self, x, state=None):
+        H, W, _ = x.shape
+        if state is None:
+            z = x.new_zeros((H, W, self.hidden))
+            state = (z, z)
+        h, c = state
+        xh = torch.cat([x, h], dim=-1).permute(2, 0, 1)[None]
+        gates = self.Gates(xh)[0].permute(1, 2, 0)
+        i, f, o, g = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return h, (h, c)

@@ -14,7 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.corr import avg_pool2d, patchify as gather_patches
+from ..ops.corr import avg_pool2d, corr, corr_stack, pyramidify
+from ..ops.corr import patchify as gather_patches
 from ..ops.corr_perms import folded_corr_perm, paired_corr_perm
 from .encoders import MultiScaleEncoder, SingleScaleEncoder
 from .update import Update
@@ -51,6 +52,26 @@ class VONet(nn.Module):
         fmap, imap = self.patchify.encoder.encode_window(events, images, mask,
                                                          n_out)
         return fmap / 4.0, imap / 4.0
+
+
+class CorrBlock:
+    """Training-time two-level correlation closure (ref net.py:206-229;
+    port of rampvo_tpu/models/vonet.py::CorrBlock): fmap [N, h, w, C]
+    per-frame features, gmap [N*M, P, P, C] patch features;
+    __call__(kk, jj, coords) -> [E, 2*49*P*P], the levels stacked as
+    `corr_stack` stacks them."""
+
+    def __init__(self, fmap, gmap, radius: int = 3, levels=(1, 4)):
+        self.radius = radius
+        self.levels = levels
+        self.gmap = gmap
+        self.pyramid = pyramidify(fmap, lvls=levels)
+
+    def __call__(self, kk, jj, coords):
+        return corr_stack(*[
+            corr(self.gmap, self.pyramid[i], coords / lvl, kk, jj,
+                 self.radius)
+            for i, lvl in enumerate(self.levels)])
 
 
 def fold_corr_fc1(net: VONet, layout: str):

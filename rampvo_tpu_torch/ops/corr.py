@@ -191,6 +191,11 @@ def avg_pool2d(x, k: int):
     return x.reshape(n, h // k, k, w // k, k, c).mean(dim=(2, 4))
 
 
+def pyramidify(fmap, lvls=(1, 4)):
+    """Feature pyramid by average pooling (ref ramp/utils.py:81-90), NHWC."""
+    return [avg_pool2d(fmap, lvl) for lvl in lvls]
+
+
 def corr_stack(c1, c2):
     """Stack two pyramid levels into the update operator's input layout,
     level fastest-varying (Ramp_vo.py:182): [E, P, P, d*d] x 2 ->

@@ -39,6 +39,14 @@ def segment_sum(x, seg_ids, num_segments: int, valid=None):
     return out.index_add_(0, seg_ids.long(), x)
 
 
+def segment_mean(x, seg_ids, num_segments: int, valid=None):
+    """Mean of the valid rows of each segment (zero where none)."""
+    s = segment_sum(x, seg_ids, num_segments, valid)
+    ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    cnt = segment_sum(ones, seg_ids, num_segments, valid)
+    return s / _rows(torch.clamp(cnt, min=1.0), s)
+
+
 def compact_ids(ids):
     """Dense ranks of arbitrary ids (torch.unique's inverse index)."""
     return torch.unique(ids, return_inverse=True)[1]

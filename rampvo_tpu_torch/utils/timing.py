@@ -1,9 +1,10 @@
 """Section timing (port of rampvo_tpu/utils/timing.py; ref
 ramp/utils.py:22-44, the reference's CUDA-event Timer).
 
-On a CUDA device a section is timed by CUDA events recorded on the current
-stream (the device time between them, read after a synchronize at the
-section's end), elsewhere by the host clock. A
+A section is timed on the card by default: by CUDA events recorded on the
+current stream (the device time between them, read after a synchronize at
+the section's end). With `device="cpu"`, and only when asked so, it is
+timed by the host clock. A
 `torch.profiler.record_function` span opens with the section, so it
 appears in profiler traces, where the JAX package opens a
 `jax.profiler.TraceAnnotation`.
@@ -22,7 +23,7 @@ class Timer:
     else printed in ms."""
 
     def __init__(self, name: str, enabled: bool = True,
-                 results: dict | None = None, device="cpu"):
+                 results: dict | None = None, device="cuda"):
         self.name = name
         self.enabled = enabled
         self.results = results

@@ -630,6 +630,39 @@ def make_update_fn(cfg: VOConfig, net: VONet, half: bool,
     return update_fn
 
 
+def _make_encode_fn(net_h: VONet):
+    """encode_fn(events, images, mask, enc_state, heads=True): the encoder
+    step of the network the frame step runs (`_half`), its kernel weights
+    packed once (the network is frozen). It advances the carry
+    `enc_state` in place and returns (fmap/4, imap/4), or (None, None)
+    with `heads=False` (events-only frames)."""
+    enc = net_h.patchify.encoder
+    if net_h.input_mode == "SingleScale":
+        packed = singlescale_weights(enc)
+
+        def encode(events, images, mask, enc_state, heads):
+            return singlescale_encode(enc, events, images, enc_state, heads,
+                                      packed)
+    else:
+        packed = multiscale_weights(enc)
+
+        def encode(events, images, mask, enc_state, heads):
+            return multiscale_encode(enc, events, images, mask, enc_state,
+                                     heads, packed)
+
+    @torch.no_grad()
+    def encode_fn(events, images, mask, enc_state, heads=True):
+        dt = next(net_h.parameters()).dtype
+        fmap, imap, enc2 = encode(events.to(dt), images.to(dt), mask,
+                                  enc_state, heads)
+        _assign(enc_state, enc2)
+        if not heads:
+            return None, None
+        return fmap / 4.0, imap / 4.0
+
+    return encode_fn
+
+
 def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
                   event_bias: bool = True, oracle=None):
     """Build the per-frame step.
@@ -666,31 +699,7 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
 
-    enc = net_h.patchify.encoder
-    if vonet.input_mode == "SingleScale":
-        packed = singlescale_weights(enc)   # packed once: the net is frozen
-
-        def encode(events, images, mask, enc_state, heads):
-            return singlescale_encode(enc, events, images, enc_state, heads,
-                                      packed)
-    else:
-        packed = multiscale_weights(enc)
-
-        def encode(events, images, mask, enc_state, heads):
-            return multiscale_encode(enc, events, images, mask, enc_state,
-                                     heads, packed)
-
-    @torch.no_grad()
-    def encode_fn(events, images, mask, enc_state, heads=True):
-        """Advance the carry `enc_state` in place; returns (fmap/4, imap/4),
-        or (None, None) with `heads=False` (events-only frames)."""
-        dt = next(net_h.parameters()).dtype
-        fmap, imap, enc2 = encode(events.to(dt), images.to(dt), mask,
-                                  enc_state, heads)
-        _assign(enc_state, enc2)
-        if not heads:
-            return None, None
-        return fmap / 4.0, imap / 4.0
+    encode_fn = _make_encode_fn(net_h)
 
     def patches(events, images, fmap, imap, sel):
         """Patch selection on `events` [1, H, W, Ce] (event_bias), on
@@ -789,11 +798,9 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
     return vo_frame
 
 
-def make_encode_only(encode_fn):
-    """Events-only frames: advance the encoder state in place, no VO
-    (Ramp_vo.py:338-342). Takes a frame step's `encode_fn`; the whole
-    recurrent step runs (for SingleScale the carried LSTMs as well as the
-    super-state), the heads, whose output nobody reads, do not."""
+def _encode_only(encode_fn):
+    """encode_only(state, events, images, mask) -> state over a frame
+    step's `encode_fn`: advances the encoder state in place, no heads."""
 
     def encode_only(state, events, images, mask):
         dev = state.poses.device
@@ -805,16 +812,30 @@ def make_encode_only(encode_fn):
     return encode_only
 
 
-def make_final_updates(cfg: VOConfig, vonet: VONet, iters: int = 12):
+def make_encode_only(cfg: VOConfig, vonet: VONet):
+    """Events-only frames: advance the encoder state in place, no VO
+    (Ramp_vo.py:338-342). encode_only(state, events, images, mask) ->
+    state runs the whole recurrent step of `vonet` (bf16 under
+    MIXED_PRECISION, as the frame step; for SingleScale the carried LSTMs
+    as well as the super-state); the heads, whose output nobody reads, do
+    not run. `vonet` lives on the state's device. RampVO shares its frame
+    step's encoder instead (one bf16 copy, one weight packing)."""
+    return _encode_only(_make_encode_fn(_half(cfg, vonet)))
+
+
+def make_final_updates(cfg: VOConfig, vonet: VONet, iters: int = 12,
+                       oracle=None):
     """Terminal refinement: `iters` extra updates in float32
-    (evaluate.py:254-255), corr_fc1 folded once for cfg.CORR_LAYOUT."""
+    (evaluate.py:254-255), corr_fc1 folded once for cfg.CORR_LAYOUT.
+    `oracle` (see `_update`) replaces the correlation and the update
+    network of each of them (ref vo/runtime.py:1018-1040)."""
     update_fn = make_update_fn(cfg, vonet.eval(), half=False,
                                layout=cfg.corr_fc1_layout)
 
     @torch.no_grad()
     def final(state):
         for _ in range(iters):
-            _update(cfg, update_fn, state)
+            _update(cfg, update_fn, state, oracle)
         return state
 
     return final
@@ -874,7 +895,7 @@ class RampVO:
             device=self.device)
         self._vo_frame = make_vo_frame(cfg, self.vonet, self.device, seed,
                                        event_bias)
-        self._encode_only = make_encode_only(self._vo_frame.encode_fn)
+        self._encode_only = _encode_only(self._vo_frame.encode_fn)
         self.chunk = max(int(chunk), 1)
         self._buf: list = []
         self._vo_chunk = (

@@ -24,7 +24,6 @@ from rampvo_tpu.vo.runtime import make_vo_frame as j_make_vo_frame
 from rampvo_tpu_torch.ba.core import ba_infer as p_ba_infer
 from rampvo_tpu_torch.cli import eval_utils as peu
 from rampvo_tpu_torch.cli import evaluate as pev
-from rampvo_tpu_torch.lie import ops as pl
 from rampvo_tpu_torch.vo import RampVO, VOConfig
 from rampvo_tpu_torch.vo import pose_prediction as ppp
 from rampvo_tpu_torch.vo.runtime import make_vo_frame
@@ -37,6 +36,7 @@ from test_torch_slice import (  # noqa: F401  (fixtures)
     rand_d,
     weights,
 )
+from test_torch_tracking import port_oracle
 
 H, W = 64, 96
 M = KW["PATCHES_PER_FRAME"]
@@ -162,36 +162,6 @@ def test_flat_ba_infer_vs_jax():
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
 
 
-def _port_oracle(gt_w2c):
-    """The JAX test's ground-truth oracle (tests/test_pose_pred.py) on the
-    port's state: exact targets of each edge's patch center from the true
-    poses and disparity field."""
-    gt = torch.tensor(gt_w2c, dtype=torch.float32)
-
-    def oracle(state, ii, jj, kk, coords):
-        L, F = state.l2g.shape[0], state.poses.shape[0]
-        gi = state.l2g[ii.clamp(0, L - 1)]
-        gj = state.l2g[jj.clamp(0, L - 1)]
-        rows = (state.l2g[torch.div(kk, M, rounding_mode="floor").clamp(
-            0, L - 1)] * M + kk % M).clamp(0, F * M - 1)
-        x = state.pat_cx.reshape(-1)[rows]
-        y = state.pat_cy.reshape(-1)[rows]
-        fx, fy, cx, cy = state.intrinsics.unbind(-1)
-        d = 0.35 + 0.2 * torch.sin(x / 6.0) * torch.cos(y / 5.0)
-        X0 = torch.stack([(x - cx) / fx, (y - cy) / fy, torch.ones_like(x),
-                          d], -1)
-        gmax = gt.shape[0] - 1
-        Gij = pl.se3_mul(gt[gj.clamp(0, gmax)],
-                         pl.se3_inv(gt[gi.clamp(0, gmax)]))
-        X1 = pl.se3_act4(Gij, X0)
-        Z = torch.clamp(X1[:, 2], min=0.1)
-        target = torch.stack([fx * X1[:, 0] / Z + cx, fy * X1[:, 1] / Z + cy],
-                             -1)
-        return target - coords[:, 1, 1, :], torch.ones_like(target)
-
-    return oracle
-
-
 def test_pose_prediction_slice_vs_jax(weights):
     """Both VOs driven by the same ground-truth oracle over 12 frames of
     the synthetic curved trajectory (same weights, events and depth
@@ -212,7 +182,7 @@ def test_pose_prediction_slice_vs_jax(weights):
                                                         M))
     pvo = RampVO(VOConfig(**kw), net, ht=H, wd=W, device="cpu")
     pvo._vo_frame = make_vo_frame(pvo.cfg, pvo.vonet, "cpu",
-                                  oracle=_port_oracle(gt_w2c))
+                                  oracle=port_oracle(gt_w2c, M))
     rng = np.random.RandomState(0)
     for t in range(n_frames):
         ev = rng.rand(1, H, W, 5).astype(np.float32)
