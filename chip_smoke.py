@@ -17,6 +17,9 @@
                                            # geometry and Lie groups (5f)
     python3 chip_smoke.py --truth-only     # only ground-truth tracking (5g)
                                            # and learned weights (5h)
+    python3 chip_smoke.py --dp-only        # only data-parallel training (7)
+    python3 chip_smoke.py --train-bench-only  # only cli.bench --train (7b)
+    python3 chip_smoke.py --harness-only   # only the ATE harness (7c)
     python3 chip_smoke.py --ab DIR         # K7, K2, K3 and the folded
                                            # correlation here and in the
                                            # tree at DIR, in turns
@@ -88,7 +91,17 @@ the MultiScale recipe (config_net/MultiScale_TartanEvent.json) at
 480x640 through the training CLI's loop on an in-memory 30-voxel window
 of the same scene, with launch counts, a checkpoint round trip, s/step,
 peak memory and a profiled step, then one step of the recipe without
-event bias (gradient_bias true, `run_selection_training`). Prints one
+event bias (gradient_bias true, `run_selection_training`); (7c) the
+ATE-parity harness (cli/real_ckpt_eval.py) run_scenario -> evaluate ->
+emit_table for a SingleScale and a MultiScale scenario on the CLI phase's
+in-memory scene with reference-format .pth weights
+(`run_harness_phase`); (7b) `cli.bench --train`: the full recipe step
+(M=96, 18 unrolled steps) timed, then each --ablate variant, with launch
+counts (`run_train_bench_phase`); (7) data-parallel training: one step
+with no mesh on two full-width windows, the same step in two ranks
+spawned onto the card over gloo (gradients within DP_TOL, parameters bit
+for bit equal across ranks, K7/K8 launches per rank) and in a
+world-size-1 NCCL group (`run_dp_phase`). Prints one
 {"kernels": [...]} line (ten kernels) and, last, {"ok": true,
 "device": {...}}. Any failure exits non-zero. Needs
 CUDA and the repository around it; imports nothing of JAX or rampvo_tpu.
@@ -96,6 +109,7 @@ CUDA and the repository around it; imports nothing of JAX or rampvo_tpu.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -1542,7 +1556,7 @@ def run_eviction_pass(torch, frames):
 # ---------------------------------------------------------------------------
 
 CHUNK_K = 8
-EAGER_PAIRS, EAGER_TURN = 10, 20   # host-driven / branchless pairs, frames
+EAGER_PAIRS, EAGER_TURN = 6, 20    # host-driven / branchless pairs, frames
 ENC_KERNEL = {"MultiScale": ("lstm_fold_cm", 3),
               "SingleScale": ("lstm_carry_fold_cm", 1)}
 CORR_WRAPPER = {"fused3": "corr_lattice", "fused4": "corr_lattice_cb",
@@ -1830,7 +1844,7 @@ def run_chunk_path(torch, p2, frames, intr):
     the eager per-frame driver from the same state, bit for bit.
     (1) MultiScale and SingleScale under fused3 at chunk=8: 40 warm eager
     frames, 40 frames into both twins, states compared after every
-    replay; then ms/frame in turns (10 alternating pairs of the eager
+    replay; then ms/frame in turns (6 alternating pairs of the eager
     host-driven and branchless frames, two graph turns; quartiles of
     each) beside P2's host µs a launch, the graph's
     device-busy time, its share of the profiled replay's span and kernels
@@ -2720,6 +2734,12 @@ def run_overfit_phase(torch, counters, card):
 # phase 6: training
 # ---------------------------------------------------------------------------
 
+def rel_l1(a, b):
+    """Relative L1 distance of the tensor lists a and b (from b)."""
+    return (sum(float((x - y).abs().sum()) for x, y in zip(a, b))
+            / max(sum(float(y.abs().sum()) for y in b), 1e-30))
+
+
 def small_train_run(torch, device, net0, batch, draws, steps=2):
     """`steps` optimizer steps of TrainForward + Trainer on `device` from a
     copy of `net0`, the same draws each time. Returns (losses, gradients
@@ -2797,11 +2817,9 @@ def check_small_training(torch, mode, counters):
     gpu = small_train_run(torch, "cuda", net0, batch, draws)
     torch.cuda.synchronize()
     n7, n8 = counters["K7"].launches, counters["K8"].launches
-    l1 = lambda a, b: (sum(float((x - y).abs().sum()) for x, y in zip(a, b))
-                       / max(sum(float(y.abs().sum()) for y in b), 1e-30))
     dl = max(abs(a - b) / abs(b) for a, b in zip(gpu[0], cpu[0]))
-    dg = l1(gpu[1], cpu[1])
-    dp = l1(gpu[2], cpu[2])
+    dg = rel_l1(gpu[1], cpu[1])
+    dp = rel_l1(gpu[2], cpu[2])
     lr_sum = cpu[3].lr(0) + cpu[3].lr(1)
     dmax = max(float((x - y).abs().max()) for x, y in zip(gpu[2], cpu[2]))
     ok = (all(np.isfinite(gpu[0])) and dl <= 1e-3 and dg <= 1e-2
@@ -2815,14 +2833,16 @@ def check_small_training(torch, mode, counters):
         fail(f"small {mode} training: cuda and cpu disagree")
 
 
-def train_window():
+@functools.lru_cache(maxsize=2)
+def train_window(seed=0):
     """The full-width training window in the dataset's format: 30 voxels
     (one between frames) and 15 frames at 480x640 of the textured-plane
-    scene of `synthetic_scene`, disparities 0.5 (the plane 2 m away), its
-    camera-to-world poses and intrinsics."""
+    scene of `synthetic_scene` (texture from `seed`), disparities 0.5 (the
+    plane 2 m away), its camera-to-world poses and intrinsics. Kept for
+    the next caller, who only reads it: it takes seconds of host numpy."""
     import numpy as np
 
-    data, poses, _ = synthetic_scene(n_frames=15, every=1)
+    data, poses, _ = synthetic_scene(n_frames=15, every=1, seed=seed)
     mask = np.array([bool(d["mask"][0]) for d in data])
     nf = int(mask.sum())
     return {
@@ -2922,8 +2942,9 @@ def run_train_main_path(torch, counters):
             warm = sorted(h["seconds"] for h in list(loop.history)[3:6])
             s_warm = warm[1]
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            # device events only: the host events of ~79k launches take
+            # the profiler tens of seconds to aggregate, and none is read
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 loop.run(n_steps=1)
                 torch.cuda.synchronize()
             s_prof = loop.history[-1]["seconds"]
@@ -2951,6 +2972,320 @@ def run_train_main_path(torch, counters):
             print(f"  K7/K8 in the step: {e.self_device_time_total / 1e3:.3f}"
                   f" ms {e.count}x {e.key[:60]}")
     return counts, s_step, peak, busy / s_prof
+
+
+# ---------------------------------------------------------------------------
+# phase 7: data-parallel training, the training bench, the ATE harness
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 9          # unrolled steps of the DP phase (the recipe's 18, cut)
+DP_TOL = 2e-3         # relative L1 of gradients between runs on the card
+
+
+def recipe_config():
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "config_net", "MultiScale_TartanEvent.json")
+              ) as f:
+        return json.load(f)
+
+
+def dp_inputs(torch):
+    """Two full-width windows (textures 0 and 1) as a batch of two with
+    world-to-camera poses, seeded weights (the flow head scaled by 0.1, as
+    the CUDA-vs-CPU trainings) and each sample's draws."""
+    import numpy as np
+
+    from rampvo_tpu_torch.lie import ops as lops
+    from rampvo_tpu_torch.models.vonet import VONet, init_weights
+    from rampvo_tpu_torch.train.forward import TrainForward
+
+    wins = [train_window(), train_window(1)]     # (the cache's two keys)
+    batch = {k: torch.as_tensor(np.stack([w[k] for w in wins]))
+             for k in wins[0]}
+    batch["poses"] = lops.se3_inv(batch["poses"])
+    net = init_weights(VONet("MultiScale"), torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        net.update.d[1].weight.mul_(0.1)
+    probe = TrainForward(net, n_frames=15, M=80, steps=DP_STEPS)
+    draws = [probe.draw(torch.Generator().manual_seed(30 + b), "cpu", H, W)
+             for b in range(2)]
+    return net.state_dict(), batch, draws, probe.E
+
+
+def dp_step(torch, state, batch, draws, mesh=None):
+    """One step of parallel.make_train_step (the recipe's optimizer, its
+    M=80, DP_STEPS unrolled steps) from `state` on the given samples, on
+    the mesh's device (or cuda). Returns (loss, gradients after the clip,
+    parameters after the step, seconds), the tensors on the CPU."""
+    from rampvo_tpu_torch.models.vonet import VONet
+    from rampvo_tpu_torch.parallel import make_train_step
+    from rampvo_tpu_torch.train.forward import TrainForward
+    from rampvo_tpu_torch.train.step import Trainer
+
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    net = VONet("MultiScale")
+    net.load_state_dict(state)
+    net.to(dev)
+    tr = Trainer(net, recipe_config()["data_loader"]["train"]["args"])
+    step = make_train_step(TrainForward(net, n_frames=15, M=80,
+                                        steps=DP_STEPS), tr, mesh)
+    batch = {k: (v if k == "mask" else v.to(dev)) for k, v in batch.items()}
+    draws = [{k: v.to(dev) for k, v in d.items()} for d in draws]
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    loss, _ = step(batch, draws=draws)
+    loss = float(loss)
+    sec = time.perf_counter() - t
+    return (loss, [p.grad.cpu() for p in tr.params],
+            [p.detach().cpu() for p in tr.params], sec)
+
+
+def dp_rank(rank, tmp):
+    """A rank of the DP phase: joins a 2-rank gloo group through a file,
+    takes its block of the batch and its sample's draws on cuda:0, and
+    writes (loss, gradients, parameters, seconds, K7 and K8 launches,
+    peak GiB) to tmp/rank{rank}.pt."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from rampvo_tpu_torch.ops import corr_train_kernels as ctk
+    from rampvo_tpu_torch.parallel import make_mesh, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=300))
+    try:
+        inp = torch.load(f"{tmp}/in.pt")
+        mesh = make_mesh("cuda:0")
+        shard = shard_batch(mesh, inp["batch"])
+        for c in (ctk.corr_train_cuda, ctk.corr_train_bwd_cuda):
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = dp_step(torch, inp["state"], shard, [inp["draws"][rank]], mesh)
+        torch.cuda.synchronize()
+        torch.save(out + ((ctk.corr_train_cuda.launches,
+                           ctk.corr_train_bwd_cuda.launches),
+                          torch.cuda.max_memory_allocated() / 2 ** 30,
+                          (mesh.world_size, mesh.rank)),
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dp_phase(torch, counters, card):
+    """Data-parallel training on the card (parallel/mesh.py): the
+    MultiScale recipe at 480x640, 15 frames, M=80, DP_STEPS unrolled steps
+    (E from the recipe's schedule at that depth), two windows. (a) One
+    step with no mesh on the batch of two; (b) two ranks spawned onto
+    cuda:0 over gloo (NCCL refuses two ranks on one device), one window
+    each: gradients within DP_TOL in relative L1 of (a)'s (K8's and
+    index_add_'s atomics change the sums' order from run to run),
+    parameters after the step bit for bit equal across the ranks, K7 and
+    K8 DP_STEPS launches in each rank; (c) one step in a world-size-1 NCCL
+    group through the same make_train_step on the batch of two: within
+    DP_TOL of (a). Same weights and draws throughout, TF32 off."""
+    import multiprocessing as mp
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from rampvo_tpu_torch.models.vonet import VONet
+    from rampvo_tpu_torch.parallel import make_mesh
+
+    state, batch, draws, E = dp_inputs(torch)
+    net0 = VONet("MultiScale")
+    net0.load_state_dict(state)
+    reset(counters)
+    torch.cuda.reset_peak_memory_stats()
+    ref = dp_step(torch, state, batch, draws)
+    torch.cuda.synchronize()
+    n_ref = launches(counters)
+    peak_ref = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"state": state, "batch": batch, "draws": draws},
+                   f"{tmp}/in.pt")
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank, args=(r, tmp)) for r in (0, 1)]
+        t = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(600 - (time.perf_counter() - t), 1))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        wall = time.perf_counter() - t
+        if hung or any(p.exitcode != 0 for p in procs):
+            fail(f"DP phase: ranks exit codes {[p.exitcode for p in procs]}"
+                 f" ({len(hung)} hung)")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in (0, 1)]
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg1",
+                                rank=0, world_size=1,
+                                timeout=timedelta(seconds=300))
+        try:
+            mesh = make_mesh()
+            reset(counters)
+            nccl = dp_step(torch, state, batch, draws, mesh)
+            torch.cuda.synchronize()
+            n_nccl = launches(counters)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    d_rank = [rel_l1(r[1], ref[1]) for r in ranks]
+    d_nccl = rel_l1(nccl[1], ref[1])
+    same = all(torch.equal(a, b) for a, b in zip(ranks[0][2], ranks[1][2]))
+    moved = sum(not torch.equal(a, b.detach()) for a, b in
+                zip(ranks[0][2], net0.parameters()))
+    want = dict.fromkeys(counters, 0)
+    want.update({"K7": 2 * DP_STEPS, "K8": 2 * DP_STEPS})
+    print(f"DP phase on {card} (MultiScale recipe 480x640, 15 frames, M=80, "
+          f"{DP_STEPS} unrolled steps, E={E}): no mesh, batch 2: loss "
+          f"{ref[0]:.6f}, {ref[3]:.3f} s, peak {peak_ref:.2f} GiB, launches "
+          f"{n_ref}; gloo ranks on cuda:0: losses "
+          f"{[round(r[0], 6) for r in ranks]}, s/step "
+          f"{[round(r[3], 3) for r in ranks]}, peak GiB per rank "
+          f"{[round(r[5], 2) for r in ranks]}, K7/K8 per rank "
+          f"{[r[4] for r in ranks]}, grads rel L1 vs no mesh "
+          f"{[f'{d:.2e}' for d in d_rank]} (tol {DP_TOL}), parameters "
+          f"bit-equal across ranks {same}, spawn to join {wall:.1f} s; "
+          f"world-size-1 {backend} group: loss {nccl[0]:.6f}, {nccl[3]:.3f} "
+          f"s, grads rel L1 {d_nccl:.2e}, launches {n_nccl}")
+    if not (same and all(d <= DP_TOL for d in d_rank + [d_nccl])
+            and n_ref == want == n_nccl and backend == "nccl"
+            and all(r[4] == (DP_STEPS, DP_STEPS) for r in ranks)
+            and all(r[6] == (2, i) for i, r in enumerate(ranks))
+            and moved > 0):
+        fail("DP phase: the data-parallel step disagrees (see the line "
+             "above)")
+    return [r[4] for r in ranks]
+
+
+def run_train_bench_phase(torch, counters, card):
+    """cli.bench --train in this process: the full recipe step (480x640,
+    15 frames, M=96, 18 unrolled steps, f32) with --iters 2, K7 = K8 = 54
+    (three steps); then each --ablate variant at 9 unrolled steps, --iters
+    1: K7 = 18 where the correlation runs, 0 under "corr"; K8 = 18 where
+    a gradient flows back into the feature maps: 0 under "corr", under
+    "encoder" (zero maps) and under "ba" (without BA the loss does not
+    depend on the network: no backward at all). Returns (the full step's
+    s/step, {variant: s/step})."""
+    from rampvo_tpu_torch.cli import bench
+
+    reset(counters)
+    full = bench.main(["--train", "--iters", "2"])
+    torch.cuda.synchronize()
+    want = dict.fromkeys(counters, 0)
+    want.update({"K7": 54, "K8": 54})
+    if launches(counters) != want or not full["value"] > 0:
+        fail(f"train bench: launches {launches(counters)}, want {want}; "
+             f"{full}")
+    times = {}
+    for name, probes in bench.ABLATE_VARIANTS.items():
+        reset(counters)
+        res = bench.main(["--train", "--iters", "1", "--steps", "9",
+                          "--ablate", name])
+        torch.cuda.synchronize()
+        want.update({"K7": 0 if "corr" in probes else 18,
+                     "K8": 0 if probes & {"corr", "encoder", "ba"} else 18})
+        if launches(counters) != want:
+            fail(f"train bench --ablate {name}: launches "
+                 f"{launches(counters)}, want {want}")
+        times[name] = res["value"]
+        torch.cuda.empty_cache()
+    print(f"train bench on {card}: full recipe {full['value']:.4f} s/step "
+          f"(metric {full['metric']}); ablate variants at 9 unrolled steps "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + " s/step; launches as expected")
+    return full["value"], times
+
+
+def run_harness_phase(torch, counters, card):
+    """The ATE-parity harness (cli/real_ckpt_eval.py) on the card:
+    run_scenario -> evaluate -> emit_table for "apollo" (SingleScale, K3)
+    and "tartanevent" (MultiScale, K1 and K2), each with its config_net
+    cut to one scene directory (empty: evaluate's `read_scene` gives the
+    in-memory 480x640 scene of the CLI phase, the card's machine has no
+    h5py), config_vo/default.yaml with the motion probe off, and seeded
+    weights written as a reference .pth (the harness resolves and loads
+    it through load_pth). Launch counts as the CLI phase's, one trial at
+    chunk 1; the ATE finite and not the 1000 sentinel; the table written
+    with both rows."""
+    import argparse
+    import dataclasses
+
+    from rampvo_tpu_torch.cli import eval_utils as eu
+    from rampvo_tpu_torch.cli import real_ckpt_eval as rce
+    from rampvo_tpu_torch.models.vonet import VONet, init_weights
+    from rampvo_tpu_torch.vo import VOConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data, ref_poses, stamps = synthetic_scene()
+    traj_ref = eu.traj_from_xyzw(ref_poses[:, :3], ref_poses[:, 3:], stamps)
+    n_vo = int(sum(d["mask"][0] for d in data))
+
+    def read_scene(scene, eval_cfg, downsample_fact):
+        return data, traj_ref, stamps, tuple(data[0]["intrinsics"])
+
+    rows, secs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(VOConfig.from_yaml(os.path.join(
+            root, "config_vo", "default.yaml")), PROBE_THRESH=-1.0)
+        vo_yaml = os.path.join(tmp, "vo.yaml")
+        with open(vo_yaml, "w") as f:
+            f.writelines(f"{k}: {json.dumps(v)}\n"
+                         for k, v in dataclasses.asdict(cfg).items())
+        os.makedirs(os.path.join(tmp, "weights"))
+        args = argparse.Namespace(
+            weights_dir=os.path.join(tmp, "weights"),
+            data_root=os.path.join(tmp, "data"), trials=1, chunk=1,
+            save_dir=os.path.join(tmp, "runs"), device="cuda")
+        for name, mode in (("apollo", "SingleScale"),
+                           ("tartanevent", "MultiScale")):
+            spec = dict(rce.SCENARIOS[name], config_vo=vo_yaml,
+                        config_net=os.path.join(tmp, f"{name}.json"))
+            with open(os.path.join(root, rce.SCENARIOS[name]["config_net"])
+                      ) as f:
+                ecfg = json.load(f)
+            ecfg["data_loader"]["test"]["test_split"] = ["scene0"]
+            with open(spec["config_net"], "w") as f:
+                json.dump(ecfg, f)
+            os.makedirs(os.path.join(tmp, "data", spec["data_subdir"],
+                                     "scene0"))
+            net = init_weights(VONet(mode), torch.Generator().manual_seed(1))
+            rce.write_reference_pth(os.path.join(tmp, "weights",
+                                                 spec["weights"]), net)
+            reset(counters)
+            t = time.perf_counter()
+            res = rce.run_scenario(name, spec, args, read_scene=read_scene)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            counts = launches(counters)
+            want = dict.fromkeys(counters, 0)
+            want.update({"K1": 12 + (n_vo - 8) + 12,
+                         "K2": 3 * len(data) if mode == "MultiScale" else 0,
+                         "K3": len(data) if mode == "SingleScale" else 0})
+            ate = (res or {}).get("scene0", float("nan"))
+            if counts != want or not (ate == ate and ate != 1000.0):
+                fail(f"harness {name}: {res}, launches {counts}, want {want}")
+            rows[name] = res
+        out = os.path.join(tmp, "ATE_PARITY.md")
+        rce.emit_table(rows, {}, out)
+        with open(out) as f:
+            table = f.read()
+    if not all(f"| {n} | scene0 |" in table for n in rows):
+        fail("harness: the table lacks a scenario's row")
+    print(f"harness phase on {card}: apollo ATE {rows['apollo']['scene0']:.5f}"
+          f" in {secs['apollo']:.2f} s, tartanevent ATE "
+          f"{rows['tartanevent']['scene0']:.5f} in {secs['tartanevent']:.2f} "
+          f"s ({len(data)} voxels, {n_vo} frames each, launches as the CLI "
+          "phase's), table written")
+    return secs
 
 
 def main() -> int:
@@ -2984,6 +3319,12 @@ def main() -> int:
     ap.add_argument("--truth-only", action="store_true",
                     help="only the ground-truth tracking (5g) and the "
                     "learned-weights (5h) phases")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="only the data-parallel training phase (7)")
+    ap.add_argument("--train-bench-only", action="store_true",
+                    help="only the training bench phase (7b)")
+    ap.add_argument("--harness-only", action="store_true",
+                    help="only the ATE-parity harness phase (7c)")
     ap.add_argument("--ab", metavar="DIR",
                     help="only time K7, K2, K3 and the folded correlation "
                     "in the tree at DIR and in this one, in turns")
@@ -3080,6 +3421,14 @@ def main() -> int:
         run_tracking_phase(torch, counters, card)
         run_overfit_phase(torch, counters, card)
         return 0
+    if args.dp_only or args.train_bench_only or args.harness_only:
+        if args.harness_only:
+            run_harness_phase(torch, counters, card)
+        if args.train_bench_only:
+            run_train_bench_phase(torch, counters, card)
+        if args.dp_only:
+            run_dp_phase(torch, counters, card)
+        return 0
     if args.pose_only or args.selection_only or args.native_only:
         if args.native_only:
             run_native_phase(card)
@@ -3095,6 +3444,12 @@ def main() -> int:
             run_selection_training(torch, counters, card)
         return 0
 
+    marks, seconds = [time.perf_counter()], {}
+
+    def mark(name):
+        marks.append(time.perf_counter())
+        seconds[name] = round(marks[-1] - marks[-2], 1)
+
     k2, k1, k3, k7, k8, lay, probes = {}, {}, {}, {}, {}, {}, {}
     check_lstm_fold(torch, ek, k2)
     check_corr_lattice(torch, ck, k1)
@@ -3108,6 +3463,7 @@ def main() -> int:
         check_small_training(torch, mode, counters)
     for layout in ("fused2", "fused4", "folded"):
         check_small_slice(torch, "MultiScale", layout)
+    mark("kernel and small checks")
 
     frames = make_frames(torch, FRAMES, H, W, 1, "cuda")
     intr = torch.tensor([320.0, 320.0, W / 2, H / 2], device="cuda")
@@ -3132,21 +3488,36 @@ def main() -> int:
         torch.cuda.empty_cache()
     print("main paths: " + "; ".join(summary))
     run_eviction_pass(torch, frames)
+    mark("main paths")
     run_chunk_path(torch, p2, frames, intr)
+    mark("chunk")
     run_cli_phase(torch, counters)
     run_pose_phase(torch, counters, card)
     run_selection_phase(torch, p2, counters, frames, intr, card)
     run_native_phase(card)
+    mark("CLI, pose, selection, native")
     run_bins_phase(torch, p2, counters, card)
     run_geometry_phase(torch, card)
+    mark("bins, geometry")
     del frames
     torch.cuda.empty_cache()
     run_tracking_phase(torch, counters, card)
     run_overfit_phase(torch, counters, card)
+    mark("tracking, overfit")
     torch.cuda.empty_cache()
     n_tr, _, _, _ = run_train_main_path(torch, counters)
     torch.cuda.empty_cache()
     run_selection_training(torch, counters, card)
+    mark("training")
+    torch.cuda.empty_cache()
+    run_harness_phase(torch, counters, card)
+    mark("harness")
+    run_train_bench_phase(torch, counters, card)
+    mark("train bench")
+    torch.cuda.empty_cache()
+    dp = run_dp_phase(torch, counters, card)
+    mark("data parallel")
+    print(f"phase seconds (after the build): {seconds}")
 
     n_ms = paths["MultiScale", "fused3"]
     n_ss = paths["SingleScale", "fused3"]
@@ -3179,10 +3550,12 @@ def main() -> int:
              **lay["K6"]["bf16"]),
         dict(name="corr_train_fwd", source="rampvo_tpu_torch/csrc/corr_train.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:1766",
-             launches=n_tr["K7"], **ker, **k7["f32"]),
+             launches=n_tr["K7"], dp_launches=[r[0] for r in dp], **ker,
+             **k7["f32"]),
         dict(name="corr_train_bwd", source="rampvo_tpu_torch/csrc/corr_train.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:2002",
-             launches=n_tr["K8"], **ker, **k8["f32"]),
+             launches=n_tr["K8"], dp_launches=[r[1] for r in dp], **ker,
+             **k8["f32"]),
         dict(name="dynlane", source="rampvo_tpu_torch/csrc/probes.cu",
              replaces="scripts/probe_dynlane.py:50", **ker, **probes["P1"]),
         dict(name="grid_probe", source="rampvo_tpu_torch/csrc/probes.cu",

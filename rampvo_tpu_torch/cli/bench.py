@@ -1,5 +1,7 @@
 """Benchmark: steady-state VO frame rate of the port (the counterpart of
-the JAX package's bench.py).
+the JAX package's bench.py), or with --train the time of one training step
+(the counterpart of scripts/bench_train_step.py and, with --ablate, of
+scripts/probe_train_ablate.py).
 
     python -m rampvo_tpu_torch.cli.bench [--frames 40] [--height 480]
         [--width 640] [--patches 96] [--input_mode MultiScale|SingleScale]
@@ -16,6 +18,24 @@ On the card a line before the last gives the card, the device-busy
 ms/frame and the kernels a frame (torch.profiler over one chunk). The last line is one JSON object
 {"metric", "value", "unit", "device"}: frames/s, named by input mode and
 size.
+
+    python -m rampvo_tpu_torch.cli.bench --train [--iters 3] [--small]
+        [--ablate full,no_corr,no_encoder,no_ba,no_update,pose_only | all]
+        [--steps 18] [--n_frames 15] [--patches 96] [--device cuda|cpu]
+
+One full-recipe training step (bench_train_step.py's: MultiScale,
+480x640 or 240x320 with --small, 15 frames, M = 96, 18 unrolled steps,
+B = 1, f32, inputs from np.random.RandomState(0), clip_by_global_norm(10)
+and AdamW(1e-4, weight decay 1e-6) at a flat rate) through
+`parallel.make_train_step` with no mesh. Prints the first step's seconds
+and loss, then the best of --iters steps, each ending in a synchronize;
+each --ablate variant (`TrainForward(ablate=)`, ABLATE_VARIANTS) is timed
+in turn in this process, one line each. The last line is one JSON object
+{"metric": "train_step_s_MultiScale_HxW", "value", "unit": "s/step",
+"device"} for the first variant (with "variants", s/step of each, under
+--ablate). The JAX script's --impls (its fused or XLA correlation, with or
+without the remat save) picks TPU paths the port does not have, so it is
+left out.
 """
 
 from __future__ import annotations
@@ -24,13 +44,26 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from .. import resolve_device
+from ..lie import ops as lops
 from ..models.vonet import VONet, init_weights
+from ..parallel.mesh import make_train_step
+from ..train.forward import TrainForward
+from ..train.step import Trainer
 from ..vo import RampVO, VOConfig
 
 WARM = 40     # eager frames before timing, as bench.py's
+ABLATE_VARIANTS = {               # scripts/probe_train_ablate.py's
+    "full": frozenset(),
+    "no_corr": frozenset({"corr"}),
+    "no_encoder": frozenset({"encoder"}),
+    "no_ba": frozenset({"ba"}),
+    "no_update": frozenset({"update"}),
+    "pose_only": frozenset({"corr", "encoder", "update"}),
+}
 
 
 def bench_config(patches: int, layout: str) -> VOConfig:
@@ -59,6 +92,76 @@ def device_busy(vo, frames, intr):
             sum(e.count for e in dev) / n)
 
 
+def train_batch(n_frames: int, ht: int, wd: int, device):
+    """bench_train_step.py's batch of one window from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    B, NF = 1, n_frames
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    batch = {"events": t(rng.rand(B, NF, ht, wd, 5)),
+             "images": t(rng.rand(B, NF, ht, wd, 3))}
+    xi = t(0.05 * rng.randn(B * NF, 6))
+    batch["poses"] = lops.se3_exp(xi).reshape(B, NF, 7)
+    batch["disps"] = t(0.5 + 0.1 * rng.rand(B, NF, ht, wd))
+    batch["intrinsics"] = t([320.0, 320.0, wd / 2, ht / 2]).expand(B, NF, 4)
+    batch["mask"] = torch.ones((B, NF), dtype=torch.bool)
+    return batch
+
+
+def bench_train(args, dev, name: str) -> dict:
+    """Time one training step of each --ablate variant; returns the last
+    line's dict (with "variants", {variant: best s/step}, under
+    --ablate)."""
+    ht, wd = (240, 320) if args.small else (args.height, args.width)
+    variants = (list(ABLATE_VARIANTS) if args.ablate == "all"
+                else (args.ablate or "full").split(","))
+    unknown = [v for v in variants if v not in ABLATE_VARIANTS]
+    if unknown:
+        raise ValueError(f"--ablate: unknown variants {unknown}")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    batch = train_batch(args.n_frames, ht, wd, dev)
+    out = {}
+    for v in variants:
+        net = init_weights(VONet("MultiScale"),
+                           torch.Generator().manual_seed(0)).to(dev)
+        fwd = TrainForward(net, n_frames=args.n_frames, M=args.patches,
+                           steps=args.steps, ablate=ABLATE_VARIANTS[v])
+        trainer = Trainer(net, {"steps": 1, "lr": 1e-4, "clip": 10.0,
+                                "weight_decay": 1e-6},
+                          schedule=lambda k: 1e-4)
+        step = make_train_step(fwd, trainer)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        g = torch.Generator(device=dev)
+        t = time.perf_counter()
+        loss, _ = step(batch, generator=g.manual_seed(1))
+        loss = float(loss)
+        print(f"[{v}] first step {time.perf_counter() - t:.3f} s "
+              f"loss={loss:.6g}", flush=True)
+        best = float("inf")
+        for _ in range(args.iters):
+            t = time.perf_counter()
+            step(batch, generator=g.manual_seed(2))
+            sync()
+            best = min(best, time.perf_counter() - t)
+        peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f}"
+                " GiB" if dev.type == "cuda" else "")
+        print(f"[{v}] {name}: train step {best:.4f} s (best of {args.iters}; "
+              f"MultiScale {ht}x{wd}, {args.n_frames} frames, M="
+              f"{args.patches}, {args.steps}-step unroll, E={fwd.E}{peak})",
+              flush=True)
+        out[v] = best
+        del net, fwd, trainer, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    first = variants[0]
+    res = {"metric": f"train_step_s_MultiScale_{ht}x{wd}"
+           + ("" if first == "full" else f"_{first}"),
+           "value": out[first], "unit": "s/step", "device": name}
+    if args.ablate:
+        res["variants"] = out
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=40)
@@ -73,9 +176,27 @@ def main(argv=None):
     ap.add_argument("--layout", type=str, default="fused3",
                     help="CORR_LAYOUT: fused3, fused4, fused2 or folded")
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--train", action="store_true",
+                    help="time one training step instead of VO frames")
+    ap.add_argument("--iters", type=int, default=3,
+                    help="--train: timed steps after the first (best of)")
+    ap.add_argument("--small", action="store_true",
+                    help="--train at 240x320")
+    ap.add_argument("--ablate", type=str, default=None,
+                    help="--train: comma list of " + ", ".join(
+                        ABLATE_VARIANTS) + ", or all")
+    ap.add_argument("--steps", type=int, default=18,
+                    help="--train: unrolled steps")
+    ap.add_argument("--n_frames", type=int, default=15,
+                    help="--train: frames of the window")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    if args.train:
+        res = bench_train(args, dev, torch.cuda.get_device_name(dev)
+                          if dev.type == "cuda" else "cpu")
+        print(json.dumps(res))
+        return res
     H, W, K = args.height, args.width, max(args.chunk, 1)
     cfg = bench_config(args.patches, args.layout)
     n_frames = args.frames - args.frames % K

@@ -189,15 +189,35 @@ def _scene_reference(scene: str, dataset_name: str):
     return intr, traj_ref, img_timestamps
 
 
+def read_scene(scene: str, eval_cfg, downsample_fact: int = 1):
+    """A scene directory as `evaluate` scores it: (data list, reference
+    trajectory, timestamps of the data's frames, intrinsics), the scene
+    cut applied."""
+    test_ = eval_cfg["data_loader"]["test"]
+    intr, traj_ref, img_timestamps = _scene_reference(
+        scene, test_["dataset_name"])
+    data_list, frame_indices = data_loader_all_events(
+        config=eval_cfg, full_scene=scene, downsample_fact=downsample_fact,
+        norm_to=eval_cfg["data_loader"]["train"]["args"].get("norm_to"),
+        intrinsics=intr)
+    data_list, traj_ref = eu.select_scene_cut(data_list, traj_ref, scene)
+    # frame_indices index the frame list the loader used (imfiles[1::ds]);
+    # the timestamps are aligned the same way
+    used_ts = img_timestamps[1::downsample_fact]
+    return (data_list, traj_ref,
+            used_ts[frame_indices] if len(frame_indices) else used_ts, intr)
+
+
 def evaluate(net, trials=1, downsample_fact=1, config_VO=None, eval_cfg=None,
              results_path=None, save_dir="trajectory_evaluation",
-             colmap_dir=None, device="cuda", chunk: int = 1):
+             colmap_dir=None, device="cuda", chunk: int = 1,
+             read_scene=read_scene):
     """Per-scene evaluation loop (ref: evaluate.py:313-412). A crash inside
     one trial scores the ate=1000 sentinel instead of aborting the run
-    (ref evaluate.py:308-310)."""
+    (ref evaluate.py:308-310). `read_scene(scene, eval_cfg,
+    downsample_fact)` reads each scene (the default reads its files)."""
     test_ = eval_cfg["data_loader"]["test"]
     train_ = eval_cfg["data_loader"]["train"]["args"]
-    norm_to = train_.get("norm_to")
     input_mode = train_["input_mode"]
     dev = resolve_device(device)
 
@@ -210,23 +230,14 @@ def evaluate(net, trials=1, downsample_fact=1, config_VO=None, eval_cfg=None,
         if not os.path.exists(scene):
             raise FileNotFoundError(f"scene {scene} not found")
         scene_name = os.path.basename(scene) if os.path.isdir(scene) else scene
-        intr, traj_ref, img_timestamps = _scene_reference(
-            scene, test_["dataset_name"])
-        data_list, frame_indices = data_loader_all_events(
-            config=eval_cfg, full_scene=scene,
-            downsample_fact=downsample_fact, norm_to=norm_to, intrinsics=intr,
-        )
-        data_list, traj_ref = eu.select_scene_cut(data_list, traj_ref, scene)
-        # frame_indices index the frame list the loader used
-        # (imfiles[1::ds]); the timestamps are aligned the same way
-        used_ts = img_timestamps[1::downsample_fact]
+        data_list, traj_ref, stamps, intr = read_scene(scene, eval_cfg,
+                                                       downsample_fact)
 
         results[scene] = {}
         for j in range(trials):
             try:
                 ate, rot, traj_est, ref, (points, colors) = evaluate_sequence(
-                    config_VO, net, eval_cfg, data_list, traj_ref,
-                    used_ts[frame_indices] if len(frame_indices) else used_ts,
+                    config_VO, net, eval_cfg, data_list, traj_ref, stamps,
                     use_pose_pred=test_.get("use_pose_pred", False),
                     seed=j,  # trials differ through the stochastic pieces
                     device=dev, chunk=chunk,

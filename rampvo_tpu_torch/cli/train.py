@@ -16,6 +16,17 @@ getitem giving the window dict).
 As the reference's train.py:154 does, the loop turns the dataset's
 camera-to-world poses into world-to-camera before the forward (the JAX
 CLI passes them as they are; ROADMAP section 3).
+
+Data parallel over N GPUs of a node, one process each:
+  torchrun --nproc_per_node N -m rampvo_tpu_torch.cli.train ...
+With WORLD_SIZE > 1 the loop joins the process group (NCCL on the card,
+gloo with `--device cpu`) unless its caller already has, takes
+cuda:LOCAL_RANK, samples its own windows (RandomState(seed + rank), draws
+from a generator seeded seed + 1 + rank) and steps through
+`parallel.make_train_step`, which sums the ranks' shares of the global
+batch's gradient: the global batch is the config's batch_size x world
+size, as the JAX CLI's over its local devices. Only rank 0 prints, logs,
+saves checkpoints and validates.
 """
 
 from __future__ import annotations
@@ -29,20 +40,33 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..ckpt.train_state import restore_checkpoint, save_checkpoint
 from ..ckpt.weights import load_pth
 from ..lie import ops as lops
 from ..models.vonet import VONet, init_weights
+from ..parallel.mesh import (BATCH_KEYS, assert_replicated, make_mesh,
+                             make_train_step)
 from ..train.forward import TrainForward
 from ..train.step import Trainer
-
-BATCH_KEYS = ("events", "images", "poses", "disps", "intrinsics", "mask")
 
 
 def collate(samples):
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def join_mesh(device: str):
+    """This process's mesh: with WORLD_SIZE > 1 (torchrun's environment)
+    and no process group yet, join one (NCCL for "cuda", gloo for "cpu");
+    a failed join raises. One process without a group: a one-member mesh
+    on `device`."""
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if ranks > 1 and not dist.is_initialized():
+        dev = resolve_device(device)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return make_mesh(device)
 
 
 class TrainLoop:
@@ -56,7 +80,9 @@ class TrainLoop:
             raise RuntimeError("the training dataset is empty")
         self.args, self.config, self.train_cfg = args, config, train_cfg
         self.dataset = dataset
-        self.device = resolve_device(args.device)
+        self.mesh = join_mesh(args.device)
+        self.device = self.mesh.device
+        self.lead = self.mesh.rank == 0
         self.run_name = args.name or config.get("experiment_name",
                                                 "rampvo_tpu")
         mode = train_cfg["input_mode"]
@@ -81,10 +107,14 @@ class TrainLoop:
                 self.step_count = int(restored["step"])
             else:
                 self.net.load_state_dict(load_pth(restored, mode))
+        assert_replicated(self.mesh, self.net.parameters())
+        # per rank; the global batch is batch_size x world size
         self.batch_size = max(int(train_cfg.get("batch_size", 1)), 1)
-        self.rng = np.random.RandomState(args.seed)
+        rank = self.mesh.rank
+        self.rng = np.random.RandomState(args.seed + rank)
         self.gen = torch.Generator(device=self.device).manual_seed(
-            args.seed + 1)
+            args.seed + 1 + rank)
+        self._steps = {}
         self.history = deque(maxlen=1000)   # the latest steps' metrics
 
     def structure_only(self) -> bool:
@@ -98,27 +128,19 @@ class TrainLoop:
         return collate([self.dataset[int(self.rng.randint(1, max(n, 2)))]
                         for _ in range(self.batch_size)])
 
-    def _loss(self, batch):
-        so = self.structure_only()
-        losses, metrics = [], []
-        for b in range(self.batch_size):
-            t = {k: torch.as_tensor(batch[k][b]).to(self.device,
-                                                    non_blocking=True)
-                 for k in BATCH_KEYS}
-            poses = lops.se3_inv(t["poses"].float())   # world-to-camera
-            loss, m = self.fwd(t["events"].float(), t["images"].float(),
-                               poses, t["disps"].float(),
-                               t["intrinsics"].float(), t["mask"].cpu(),
-                               structure_only=so, generator=self.gen)
-            losses.append(loss)
-            metrics.append(m)
-        mean = lambda xs: torch.stack(xs).mean()
-        return mean(losses), {k: mean([m[k] for m in metrics])
-                              for k in metrics[0]}
-
     def step(self, batch):
-        """One optimizer step on `batch`; returns the float metrics."""
-        loss, m, _ = self.trainer.step(lambda: self._loss(batch))
+        """One optimizer step on this rank's `batch`; returns the float
+        metrics (averaged over the ranks)."""
+        so = self.structure_only()
+        if so not in self._steps:
+            self._steps[so] = make_train_step(self.fwd, self.trainer,
+                                              self.mesh, structure_only=so)
+        t = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS}
+        t = {k: v if k == "mask" else v.to(self.device,
+                                           non_blocking=True).float()
+             for k, v in t.items()}
+        t["poses"] = lops.se3_inv(t["poses"])          # world-to-camera
+        _, m = self._steps[so](t, generator=self.gen)
         self.step_count += 1
         return {k: float(v) for k, v in m.items()}
 
@@ -134,13 +156,13 @@ class TrainLoop:
         stop = cfg["steps"] if n_steps is None else min(
             cfg["steps"], self.step_count + n_steps)
         wandb = None
-        if args.log_results:
+        if args.log_results and self.lead:
             try:
                 import wandb
             except ImportError:
                 print("WARNING: wandb is not installed, cannot log results")
         logger = None
-        if args.tensorboard:
+        if args.tensorboard and self.lead:
             from ..utils.logger import Logger
 
             logger = Logger(self.run_name, log_dir=args.tensorboard)
@@ -162,13 +184,14 @@ class TrainLoop:
                 if logger is not None:
                     logger.push({k: m[k] for k in
                                  ("loss", "px1", "flow_e", "ro", "tr")})
-                if self.step_count % args.print_every == 0:
+                if self.lead and self.step_count % args.print_every == 0:
                     out = {k: v for k, v in m.items() if k != "seconds"}
                     out["sps"] = self.step_count / (time.time() - t_start)
                     print(out, flush=True)
                     if wandb is not None:
                         wandb.log(out, step=self.step_count)
-                if self.step_count % cfg["steps_to_save_ckpt"] == 0:
+                if self.lead and \
+                        self.step_count % cfg["steps_to_save_ckpt"] == 0:
                     self.save()
                     if args.validate:
                         self._validate(logger)

@@ -41,6 +41,7 @@ from .loss import masked_norm, pose_loss_terms
 
 DIM = 384
 KEEP_P = 0.2   # corr gradient keep probability (altcorr/correlation.py:35-40)
+ABLATE = frozenset({"corr", "encoder", "ba", "update"})
 
 
 class _CorrGradDropout(torch.autograd.Function):
@@ -121,12 +122,21 @@ class TrainForward:
     world-to-camera, disps [NF, H, W], intrinsics [NF, 4], mask [T] bool
     (NF true entries). Gradients reach `vonet`'s parameters. Patches are
     selected by event density (`event_bias`), else by image gradient
-    (`gradient_bias`), else at random (ref net.py:164-188)."""
+    (`gradient_bias`), else at random (ref net.py:164-188).
+
+    `ablate` takes stages out to split a step's time, with the JAX
+    probes' meanings (rampvo_tpu/train/forward.py, read by
+    scripts/probe_train_ablate.py; here by `cli.bench --train --ablate`):
+    "corr" makes corr_in zeros that keep the coordinates in the graph (no
+    K7 or K8 launch, the keep masks unread), "encoder" makes the feature
+    maps zeros at H/4 x W/4, "ba" skips both BA iterations, "update" sets
+    delta = 0 * corr and weight = 1 in place of the update operator."""
 
     def __init__(self, vonet, n_frames: int, M: int = 80, steps: int = 18,
                  flow_weight: float = 0.1, pose_weight: float = 10.0,
                  P: int = 3, event_bias: bool = True,
-                 gradient_bias: bool = False):
+                 gradient_bias: bool = False,
+                 ablate: frozenset = frozenset()):
         self.vonet = vonet
         self.n_frames = n_frames
         self.M = M
@@ -136,6 +146,9 @@ class TrainForward:
         self.pose_weight = pose_weight
         self.event_bias = event_bias
         self.gradient_bias = gradient_bias
+        self.ablate = frozenset(ablate)
+        if not self.ablate <= ABLATE:
+            raise ValueError(f"unknown ablate probes {sorted(self.ablate)}")
         self.sched = edge_schedule(n_frames, M, steps)
         s = self.sched
         ij = s.ii.astype(np.int64) * 12345 + s.jj
@@ -196,8 +209,13 @@ class TrainForward:
         intr4 = intrinsics[0] / 4.0            # shared pinhole at 1/4 res
         intr_frames = intr4.expand(NF, 4)
 
-        fmap, imap_full = self._encode(events, images, mask)
-        fmap, imap_full = fmap.float(), imap_full.float()
+        if "encoder" in self.ablate:
+            h4, w4 = events.shape[1] // 4, events.shape[2] // 4
+            fmap = torch.zeros((NF, h4, w4, 128), device=dev)
+            imap_full = torch.zeros((NF, h4, w4, DIM), device=dev)
+        else:
+            fmap, imap_full = self._encode(events, images, mask)
+            fmap, imap_full = fmap.float(), imap_full.float()
 
         sup = [t for t, v in enumerate(torch.as_tensor(mask).tolist()) if v]
         sup = (sup + [events.shape[0] - 1] * NF)[:NF]
@@ -242,15 +260,24 @@ class TrainForward:
                     structure_only, ii, jj, created)
 
             coords_e = transform_edges(Gs[ii], Gs[jj], patches[kk], intr4)
-            corr_in = corr_train_fused(gmap_flat, pyr1, pyr2, coords_e, kk, jj)
-            corr_in = corr_grad_dropout(corr_in, draws["keep1"][s],
-                                        draws["keep2"][s]).float()
-            net, (delta, weight) = self.vonet.update(
-                net, imap_flat[kk], corr_in, ii, jj, kk, valid,
-                agg_ids=agg_ids)
+            if "corr" in self.ablate:
+                corr_in = torch.zeros((E, 2 * P * P * 49), device=dev) \
+                    + 0.0 * coords_e.sum()
+            else:
+                corr_in = corr_train_fused(gmap_flat, pyr1, pyr2, coords_e,
+                                           kk, jj)
+                corr_in = corr_grad_dropout(corr_in, draws["keep1"][s],
+                                            draws["keep2"][s]).float()
+            if "update" in self.ablate:
+                delta = 0.0 * corr_in[:, :2]
+                weight = torch.ones_like(delta)
+            else:
+                net, (delta, weight) = self.vonet.update(
+                    net, imap_flat[kk], corr_in, ii, jj, kk, valid,
+                    agg_ids=agg_ids)
             target = coords_e[:, P // 2, P // 2, :] + delta
             wgt = weight * valid[:, None].to(weight.dtype)
-            for _ in range(2):
+            for _ in range(0 if "ba" in self.ablate else 2):
                 Gs, patches = ba_train(
                     Gs, patches, intr_frames, target, wgt, 1e-4, ii, jj, kk,
                     bounds, ep=10.0, fixedp=1, structure_only=structure_only,

@@ -54,10 +54,14 @@ def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
 class Trainer:
     """AdamW + one-cycle + global-norm clip over a network's parameters
     (the reference recipe: lr, steps, clip, weight_decay, pct_start of a
-    config's train args). `step(loss_fn)` runs one optimizer step."""
+    config's train args). `step(loss_fn)` runs one optimizer step;
+    `apply()` runs one on the gradients already in .grad. `schedule`
+    (count -> rate) replaces the one-cycle rate, as a flat
+    `optax.adamw(lr)` does."""
 
-    def __init__(self, net: torch.nn.Module, train_cfg: dict):
+    def __init__(self, net: torch.nn.Module, train_cfg: dict, schedule=None):
         self.net = net
+        self.schedule = schedule
         self.params = [p for p in net.parameters() if p.requires_grad]
         self.total = int(train_cfg["steps"])
         self.peak = float(train_cfg["lr"])
@@ -69,6 +73,8 @@ class Trainer:
         self.count = 0
 
     def lr(self, count: int) -> float:
+        if self.schedule is not None:
+            return float(self.schedule(count))
         return onecycle_lr(count, self.total, self.peak, self.pct_start)
 
     def step(self, loss_fn):
@@ -78,13 +84,19 @@ class Trainer:
         self.opt.zero_grad(set_to_none=False)
         loss, metrics = loss_fn()
         loss.backward()
+        gnorm = self.apply()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            gnorm
+
+    def apply(self) -> torch.Tensor:
+        """Clip the gradients in .grad, then one AdamW step at this step's
+        learning rate. Returns the norm before clipping."""
         gnorm = clip_by_global_norm(self.params, self.clip)
         for g in self.opt.param_groups:
             g["lr"] = self.lr(self.count)
         self.opt.step()
         self.count += 1
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            gnorm
+        return gnorm
 
     def state_dict(self) -> dict:
         return {"opt": self.opt.state_dict(), "count": self.count}

@@ -355,8 +355,9 @@ def test_port_imports_no_jax():
     functions that use them. The walk reaches the training and layout
     slices' modules, the probes, pose prediction, the evaluation fleet,
     the TartanEvent entry point, the native event builders, the Lie
-    groups, the event sequence and the seeding, timing and viz
-    utilities."""
+    groups, the event sequence, the seeding, timing and viz utilities,
+    the data-parallel mesh, the benchmark and the ATE-parity harness (its
+    dry run runs with them blocked in tests/test_torch_harness.py)."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
@@ -387,5 +388,6 @@ def test_port_imports_no_jax():
                 "parallel.eval_fleet", "cli.evaluate_tartanevent",
                 "data.native", "lie.groups", "lie.quaternion",
                 "data.event_sequence", "utils.seeding", "utils.timing",
-                "utils.viz"):
+                "utils.viz", "parallel.mesh", "cli.bench",
+                "cli.real_ckpt_eval"):
         assert "rampvo_tpu_torch." + mod in lines, mod
