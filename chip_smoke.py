@@ -9,6 +9,7 @@
     python3 chip_smoke.py --k7-variants    # only K7's build variants, timed
     python3 chip_smoke.py --k2-variants    # only K2's build variants, timed
     python3 chip_smoke.py --chunk-only     # only the chunked path (4b)
+    python3 chip_smoke.py --breakdown-only # only the stage split (4c)
     python3 chip_smoke.py --pose-only      # only pose prediction (5b)
     python3 chip_smoke.py --selection-only # only patch selection (5c)
     python3 chip_smoke.py --native-only    # only the native builders (5d)
@@ -56,7 +57,12 @@ initialized frames are one CUDA-graph replay per 8 frames, held bit for
 bit against the eager driver from the same state in both modes, under
 every layout and with evicted and kept frames inside one replay past
 NI, and timed against it and against the branchless frame run eagerly in
-turns (`run_chunk_path`); (5) the evaluation CLI's run -> evaluate_sequence
+turns (`run_chunk_path`); (4c) the VO frame split by stage, `cli.bench
+--breakdown` (probes/breakdown.py): every variant of probes/frame.py
+captured as a chunk=8 graph from one warmed MultiScale state, all, no_encoder
+and zero_corr from a SingleScale one, timed in interleaved turns, with
+`all` bit for bit against the production frame's graph, each variant's
+launches and finite states (`run_breakdown_phase`); (5) the evaluation CLI's run -> evaluate_sequence
 -> score -> save_stamped_trajectories in both input modes on an
 in-memory 480x640 scene of 24 frames and 6 events-only frames, with the
 motion probe off and launch counts that show every frame tracked (the
@@ -1556,7 +1562,7 @@ def run_eviction_pass(torch, frames):
 # ---------------------------------------------------------------------------
 
 CHUNK_K = 8
-EAGER_PAIRS, EAGER_TURN = 6, 20    # host-driven / branchless pairs, frames
+EAGER_PAIRS, EAGER_TURN = 3, 10    # host-driven / branchless pairs, frames
 ENC_KERNEL = {"MultiScale": ("lstm_fold_cm", 3),
               "SingleScale": ("lstm_carry_fold_cm", 1)}
 CORR_WRAPPER = {"fused3": "corr_lattice", "fused4": "corr_lattice_cb",
@@ -1636,20 +1642,6 @@ def drive_twins(torch, eager, graph, frames, intr, t0):
                 worst[k] = max(worst.get(k, 0), v)
     torch.cuda.synchronize()
     return worst, ns
-
-
-def p2_host_us(torch, p2, reps=1000) -> float:
-    """P2's host issue cost: µs per launch over `reps` back-to-back no-op
-    launches on the host clock (see check_probes)."""
-    gt, _ = p2.make_tabs(True)
-    gt = gt.cuda()
-    p2.grid_probe_cuda("noop", gt, [])
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(reps):
-        p2.grid_probe_cuda("noop", gt, [])
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e6 / reps
 
 
 def timed_frames(torch, vo, frames, intr, t0) -> float:
@@ -1735,7 +1727,7 @@ def chunk_fused3(torch, p2, frames, intr, mode, summary):
     turns[EAGER_PAIRS:EAGER_PAIRS] = ["graph", "graph"]
     ms, slow, host, t0 = {}, {}, [], warm + FRAMES
     for key in turns:
-        host.append(p2_host_us(torch, p2))
+        host.append(p2.host_us_per_launch())
         ck.corr_lattice_slow_edges()
         run = branchless_frames if key == "branchless" else timed_frames
         fr = frames if key == "graph" else frames[:EAGER_TURN]
@@ -1844,8 +1836,9 @@ def run_chunk_path(torch, p2, frames, intr):
     the eager per-frame driver from the same state, bit for bit.
     (1) MultiScale and SingleScale under fused3 at chunk=8: 40 warm eager
     frames, 40 frames into both twins, states compared after every
-    replay; then ms/frame in turns (6 alternating pairs of the eager
-    host-driven and branchless frames, two graph turns; quartiles of
+    replay; then ms/frame in turns (EAGER_PAIRS alternating pairs of the
+    eager host-driven and branchless frames, EAGER_TURN frames a turn, two
+    graph turns of 40 frames; quartiles of
     each) beside P2's host µs a launch, the graph's
     device-busy time, its share of the profiled replay's span and kernels
     a frame (profiler over one replay), the launches the capture
@@ -1877,6 +1870,63 @@ def run_chunk_path(torch, p2, frames, intr):
     if failed:
         fail("chunk path: " + "; ".join(failed))
     print("chunk path: " + "; ".join(summary))
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the VO frame split by stage
+# ---------------------------------------------------------------------------
+
+BREAKDOWN_TURNS = 5
+BREAKDOWN_RUNS = (("MultiScale", None),
+                  ("SingleScale", "all,no_encoder,zero_corr"))
+CORR_OFF = ("zero_corr", "oracle", "no_update", "oracle_ba1", "oracle_ba0")
+
+
+def run_breakdown_phase(torch, card):
+    """Phase 4c: `cli.bench --breakdown` in this process at 480x640, M=96,
+    bf16, fused3, seeded weights, 40 warm frames, graphs of 8 frames,
+    BREAKDOWN_TURNS interleaved turns: MultiScale with every variant of
+    probes/frame.py, SingleScale with all, no_encoder and zero_corr (so
+    that K3 is split too). Fails unless `all` equals the production
+    frame's graph bit for bit from the same state, each variant's captured
+    launches a frame are K1 once (0 under zero_corr, oracle, no_update and
+    the oracle_ba variants) and K2 three times or K3 once (0 under
+    no_encoder), and every state a variant leaves is finite."""
+    from rampvo_tpu_torch.cli import bench
+
+    summary = []
+    for mode, variants in BREAKDOWN_RUNS:
+        argv = ["--breakdown", "--input_mode", mode, "--turns",
+                str(BREAKDOWN_TURNS)]
+        res = bench.main(argv + (["--variants", variants] if variants
+                                 else []))
+        torch.cuda.synchronize()
+        ch = res["checks"]
+        if ch["all_equals_production"] is not True:
+            fail(f"breakdown {mode}: all differs from the production graph")
+        enc, per = ENC_KERNEL[mode]
+        for v in res["variants"]:
+            want = {} if v == "no_encoder" else {enc: per}
+            if v not in CORR_OFF:
+                want["corr_lattice"] = 1
+            if ch["launches"].get(v) != want:
+                fail(f"breakdown {mode} {v}: launches a frame "
+                     f"{ch['launches'].get(v)}, want {want}")
+            if ch["finite"].get(v) is not True:
+                fail(f"breakdown {mode} {v}: a non-finite state")
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,"
+             "power.draw,temperature.gpu", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+        print(f"breakdown {mode}: after the run, SM clock, its maximum, "
+              f"memory clock, power draw, temperature: {clocks}")
+        st = res["stages"]
+        summary.append(f"{mode} all {res['value']:.4f} ms/frame, " + ", ".join(
+            f"{k} {'unresolved' if r['ms'] is None else round(r['ms'], 4)}"
+            for k, r in st.items()))
+        torch.cuda.empty_cache()
+    print(f"breakdown on {card}: " + "; ".join(summary)
+          + "; all == production, launches and finite states as expected")
 
 
 # ---------------------------------------------------------------------------
@@ -2205,7 +2255,7 @@ def selection_twins(torch, p2, mode, gradient, frames, intr, card, summary):
         order = ("eager", "graph") if c % 2 else ("graph", "eager")
         for key in order:
             vo = eager if key == "eager" else graph
-            host.append(p2_host_us(torch, p2))
+            host.append(p2.host_us_per_launch())
             torch.cuda.synchronize()
             t = time.perf_counter()
             for k, (ev, im) in enumerate(fr):
@@ -2383,7 +2433,7 @@ def run_bins_phase(torch, p2, counters, card):
         check_small_slice(torch, mode, bins=BINS, damp=True)
     K = CHUNK_K
     frames = make_frames(torch, FRAMES + 2 * K, H, W, 11, "cuda", BINS)
-    host = [p2_host_us(torch, p2)]
+    host = [p2.host_us_per_launch()]
     eager, ms_eager, counts = bins_eager(torch, counters, "MultiScale",
                                          frames[:FRAMES], intr)
     print(f"bins MultiScale {BINS} bins eager on {card}: {FRAMES} frames, "
@@ -2405,7 +2455,7 @@ def run_bins_phase(torch, p2, counters, card):
     ms, prof = {10: [], 5: []}, {}
     for bins in (10, 5, 5, 10):
         vo, fr = (graph, frames[:FRAMES]) if bins == 10 else (g5, f5)
-        host.append(p2_host_us(torch, p2))
+        host.append(p2.host_us_per_launch())
         ms[bins].append(timed_frames(torch, vo, fr, intr, 1000 * len(host)))
     for bins, vo, fr in ((10, graph, frames), (5, g5, f5)):
         prof[bins] = profile_frames(torch, vo, fr[:K], intr, min(ms[bins]))
@@ -2415,7 +2465,7 @@ def run_bins_phase(torch, p2, counters, card):
             fail("bins MultiScale: non-finite trajectory")
     del eager, graph, g5
     torch.cuda.empty_cache()
-    host.append(p2_host_us(torch, p2))
+    host.append(p2.host_us_per_launch())
     ss, ms_ss, counts = bins_eager(torch, counters, "SingleScale",
                                    frames[:24], intr)
     traj, _ = ss.terminate()
@@ -2878,9 +2928,9 @@ def run_train_main_path(torch, counters):
     to 0 just before and read just after: K7 and K8 launch once per
     unrolled step (54 each), the inference kernels never. Then: finite
     losses, parameters changed, a checkpoint written and restored by a new
-    loop, s/step (mean of steps 2 and 3, and the median of three more warm
-    steps), peak device memory, and the device-busy share of one more,
-    profiled, step against its own wall time."""
+    loop, s/step (mean of steps 2 and 3, and one more warm step), peak
+    device memory, and the device-busy share of one more, profiled, step
+    against its own wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2937,10 +2987,9 @@ def run_train_main_path(torch, counters):
             del again
             sec = [h["seconds"] for h in hist]
             s_step = sum(sec[1:3]) / 2
-            # warm steps 4-6 (pose BA has run once), then a profiled step 7
-            loop.run(n_steps=3)
-            warm = sorted(h["seconds"] for h in list(loop.history)[3:6])
-            s_warm = warm[1]
+            # a warm step 4 (pose BA has run once), then a profiled step 5
+            loop.run(n_steps=1)
+            s_warm = loop.history[3]["seconds"]
             torch.cuda.synchronize()
             # device events only: the host events of ~79k launches take
             # the profiler tens of seconds to aggregate, and none is read
@@ -2957,13 +3006,13 @@ def run_train_main_path(torch, counters):
           f"config_net/MultiScale_TartanEvent.json, E=18000, 18 unrolled "
           f"steps, structure-only step 1): 3 steps, losses {losses}, "
           f"seconds/step {sec}, median of steps 2-3 {s_step} s/step; "
-          f"warm steps 4-6 {warm} s, median {s_warm} s/step; peak device "
+          f"warm step 4 {s_warm} s; peak device "
           f"memory {peak:.2f} GiB; {changed}/{len(before)} parameter tensors "
           f"changed; checkpoint step 3 written and restored; launches "
           f"{counts}")
-    print(f"profile (training step 7): device busy {busy} s of the profiled "
+    print(f"profile (training step 5): device busy {busy} s of the profiled "
           f"step's {s_prof} s wall ({100 * busy / s_prof:.1f}% busy; "
-          f"{100 * busy / s_warm:.1f}% of the warm median); {n_kern} kernels")
+          f"{100 * busy / s_warm:.1f}% of the warm step); {n_kern} kernels")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  "
               f"{e.key[:90]}")
@@ -3306,6 +3355,8 @@ def main() -> int:
                     help="only compare the K2 build variants")
     ap.add_argument("--chunk-only", action="store_true",
                     help="only the chunked path (CUDA-graph replay) phase")
+    ap.add_argument("--breakdown-only", action="store_true",
+                    help="only the stage split of the VO frame (4c)")
     ap.add_argument("--pose-only", action="store_true",
                     help="only the pose-prediction phase (5b)")
     ap.add_argument("--selection-only", action="store_true",
@@ -3409,6 +3460,9 @@ def main() -> int:
                 "K5": pk.corr_lattice_paired, "K6": ck.corr_lattice_cb,
                 "K7": ctk.corr_train_cuda, "K8": ctk.corr_train_bwd_cuda,
                 "P1": p1.dynlane, "P2": p2.grid_probe}
+    if args.breakdown_only:
+        run_breakdown_phase(torch, card)
+        return 0
     if args.bins_only:
         k2, k3 = {}, {}
         check_lstm_fold(torch, ek, k2)
@@ -3491,6 +3545,8 @@ def main() -> int:
     mark("main paths")
     run_chunk_path(torch, p2, frames, intr)
     mark("chunk")
+    run_breakdown_phase(torch, card)
+    mark("breakdown")
     run_cli_phase(torch, counters)
     run_pose_phase(torch, counters, card)
     run_selection_phase(torch, p2, counters, frames, intr, card)

@@ -1,6 +1,8 @@
 """Benchmark: steady-state VO frame rate of the port (the counterpart of
-the JAX package's bench.py), or with --train the time of one training step
-(the counterpart of scripts/bench_train_step.py and, with --ablate, of
+the JAX package's bench.py), with --breakdown the VO frame split by stage
+(the counterpart of scripts/breakdown.py and the VO probes), or with
+--train the time of one training step (the counterpart of
+scripts/bench_train_step.py and, with --ablate, of
 scripts/probe_train_ablate.py).
 
     python -m rampvo_tpu_torch.cli.bench [--frames 40] [--height 480]
@@ -18,6 +20,23 @@ On the card a line before the last gives the card, the device-busy
 ms/frame and the kernels a frame (torch.profiler over one chunk). The last line is one JSON object
 {"metric", "value", "unit", "device"}: frames/s, named by input mode and
 size.
+
+    python -m rampvo_tpu_torch.cli.bench --breakdown [--variants a,b,...]
+        [--turns 5] [--warm 40] [--chunk 8] [--input_mode ...]
+        [--layout fused3] [--height 480] [--width 640] [--patches 96]
+        [--small] [--device cuda|cpu]
+
+`probes.breakdown.run_breakdown` on bench.py's VOConfig (never
+evicting), seeded weights and np.random.RandomState(0) frames: --warm
+eager frames, then each variant of `probes.frame.VARIANTS` (every one by
+default) as a CUDA graph of --chunk frames, replayed from the warmed
+state in --turns interleaved turns; the stage table, each stage alone and
+a profiled replay. One line per variant and stage; the last line is one
+JSON object {"metric": "vo_frame_breakdown_<mode>_HxW", "value" (all's
+median graph ms/frame), "unit": "ms/frame", "stages", "variants",
+"alone", "checks", "top15", "device"}. --small runs 64x96, M=8, float32
+on a small lattice (the CPU tests' size; with --device cpu the plain
+versions, host-clock times).
 
     python -m rampvo_tpu_torch.cli.bench --train [--iters 3] [--small]
         [--ablate full,no_corr,no_encoder,no_ba,no_update,pose_only | all]
@@ -41,6 +60,7 @@ left out.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -66,12 +86,35 @@ ABLATE_VARIANTS = {               # scripts/probe_train_ablate.py's
 }
 
 
+SMALL = dict(BUFFER_SIZE=64, MAX_FRAMES=64, REMOVAL_WINDOW=5,
+             OPTIMIZATION_WINDOW=4, PATCH_LIFETIME=3, KEYFRAME_INDEX=2,
+             MIXED_PRECISION=False, MEM=16, PATCHES_PER_FRAME=8)
+
+
 def bench_config(patches: int, layout: str) -> VOConfig:
     """bench.py:57-69, with `patches` patches a frame and CORR_LAYOUT
     `layout`."""
     return VOConfig(BUFFER_SIZE=512, MAX_FRAMES=512, MIXED_PRECISION=True,
                     PROBE_THRESH=-1.0, KEYFRAME_THRESH=0.0,
                     PATCHES_PER_FRAME=patches, CORR_LAYOUT=layout)
+
+
+def breakdown(args, dev) -> dict:
+    """--breakdown: `probes.breakdown.run_breakdown` on bench_config (the
+    probe scripts' config: KEYFRAME_THRESH=0.0, PROBE_THRESH=-1.0), or at
+    the CPU tests' size with --small."""
+    from ..probes.breakdown import run_breakdown
+
+    cfg = bench_config(args.patches, args.layout)
+    H, W = args.height, args.width
+    if args.small:
+        cfg, H, W = dataclasses.replace(cfg, **SMALL), 64, 96
+    net = init_weights(VONet(args.input_mode),
+                       torch.Generator().manual_seed(0))
+    return run_breakdown(cfg, net, args.input_mode, H, W, dev,
+                         args.variants.split(",") if args.variants else None,
+                         turns=args.turns, K=max(args.chunk, 1),
+                         warm=args.warm)
 
 
 def device_busy(vo, frames, intr):
@@ -181,7 +224,17 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=3,
                     help="--train: timed steps after the first (best of)")
     ap.add_argument("--small", action="store_true",
-                    help="--train at 240x320")
+                    help="--train at 240x320; --breakdown at 64x96, M=8, "
+                    "float32, a small lattice")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="split the VO frame by stage instead")
+    ap.add_argument("--variants", type=str, default=None,
+                    help="--breakdown: comma list of probes.frame.VARIANTS "
+                    "(default: every one)")
+    ap.add_argument("--turns", type=int, default=5,
+                    help="--breakdown: interleaved turns of replays")
+    ap.add_argument("--warm", type=int, default=WARM,
+                    help="--breakdown: eager frames before the graphs")
     ap.add_argument("--ablate", type=str, default=None,
                     help="--train: comma list of " + ", ".join(
                         ABLATE_VARIANTS) + ", or all")
@@ -195,6 +248,10 @@ def main(argv=None):
     if args.train:
         res = bench_train(args, dev, torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu")
+        print(json.dumps(res))
+        return res
+    if args.breakdown:
+        res = breakdown(args, dev)
         print(json.dumps(res))
         return res
     H, W, K = args.height, args.width, max(args.chunk, 1)

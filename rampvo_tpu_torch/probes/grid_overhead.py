@@ -105,3 +105,20 @@ def grid_probe(variant: str, tabs, outs):
 
 
 grid_probe.launches = 0
+
+
+def host_us_per_launch(reps: int = 1000) -> float:
+    """P2's host issue cost on the card: µs per launch over `reps`
+    back-to-back "noop" launches on the host clock, ending in a
+    synchronize (the cost the host pays for each launch of an eager
+    frame)."""
+    import time
+
+    tabs = make_tabs(True)[0].cuda()
+    grid_probe_cuda("noop", tabs, [])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        grid_probe_cuda("noop", tabs, [])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e6 / reps

@@ -95,7 +95,9 @@ def make_vo_frames_chunk(cfg: VOConfig, vonet: VONet, K: int, device="cuda",
     on `device`. A step without event_bias takes each frame's selection
     draws from `sel` ((x, y) [K, 1, C] integers) or draws them on the
     device from a generator seeded with `seed`. A step with an oracle is
-    refused.
+    refused. `timing`, a pair of CUDA events, is recorded just before and
+    just after the replay (the card only; probes/breakdown.py times
+    replays so).
     """
     dev = resolve_device(device)
     step = make_vo_frame(cfg, vonet, dev) if frame is None else frame
@@ -134,7 +136,8 @@ def make_vo_frames_chunk(cfg: VOConfig, vonet: VONet, K: int, device="cuda",
         held.update(graph=graph, bufs=bufs,
                     ptrs=[t.data_ptr() for t in state_tensors(view)])
 
-    def frames(state: VOState, events, images, intrinsics, sel=None):
+    def frames(state: VOState, events, images, intrinsics, sel=None,
+               timing=None):
         if not state.initialized:
             raise ValueError("make_vo_frames_chunk runs initialized frames")
         if state.counter + K > cfg.MAX_FRAMES or state.n + K > cfg.BUFFER_SIZE:
@@ -165,7 +168,11 @@ def make_vo_frames_chunk(cfg: VOConfig, vonet: VONet, K: int, device="cuda",
                                  "tensors")
             for b, x in zip(held["bufs"], inputs):
                 b.copy_(x)
+            if timing is not None:
+                timing[0].record()
             held["graph"].replay()
+            if timing is not None:
+                timing[1].record()
         state.n = int(n_dev)
         state.counter += K
         return state

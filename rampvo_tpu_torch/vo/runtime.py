@@ -303,10 +303,12 @@ def _reproject_lattice_edges(cfg: VOConfig, state: VOState):
     return torch.stack([u, v], dim=-1).reshape(-1, P, P, 2)
 
 
-def _edge_corr_ctx_lattice(cfg: VOConfig, state: VOState):
+def _edge_corr_ctx_lattice(cfg: VOConfig, state: VOState,
+                           corr_fn=_lattice_corr):
     """Correlation + context for the full lattice. Returns (target [E, 2]
     center reprojections, corr_in [E, 882 or 1152] in cfg.CORR_LAYOUT's
-    layout, ctx [NI*M, DIM] t-compressed).
+    layout, ctx [NI*M, DIM] t-compressed). `corr_fn` computes corr_in
+    (`_lattice_corr`'s arguments; probes/frame.py swaps in zeros).
 
     The context of lattice row i is the imap of its host frame's patches,
     looked up from the row's host directly in every layout (the reference
@@ -315,7 +317,7 @@ def _edge_corr_ctx_lattice(cfg: VOConfig, state: VOState):
     M, MEM, NI = cfg.M, cfg.MEM, cfg.NI
     u, v, uc, vc = _reproject_lattice_planar(cfg, state)
     target = torch.stack([uc.reshape(-1), vc.reshape(-1)], dim=-1)
-    corr_in = _lattice_corr(
+    corr_in = corr_fn(
         cfg, state.gmap_r, state.fmap1_r, state.fmap2_r, u, v,
         state.cell_valid, state.n, state.slotmap, cfg.PATCH_LIFETIME,
         (NI, cfg.T, M))
@@ -408,24 +410,25 @@ def _append_edges_dev(cfg: VOConfig, state: VOState):
         x[rows, tf] = torch.where(ok[:, None, None], 0.0, x[rows, tf])
 
 
-def _update(cfg: VOConfig, update_fn, state: VOState, oracle=None):
+def _update(cfg: VOConfig, update_fn, state: VOState, oracle=None,
+            corr_fn=_lattice_corr):
     """One VO update: reproject -> corr -> update net -> BA
     (Ramp_vo.py:276-310).
 
     `oracle(state, ii, jj, kk, coords [E, P, P, 2]) -> (delta, weight)`
     [E, 2] each, when given, replaces the correlation and the update
     network (the hidden state is left as it is), e.g. to drive BA with
-    ground-truth targets (ref vo/runtime.py:545-580)."""
-    M, PW, NI = cfg.M, cfg.POSE_WINDOW, cfg.NI
+    ground-truth targets (ref vo/runtime.py:545-580). An `update_fn` that
+    returns no hidden state (None) leaves it as it is too. `corr_fn` (see
+    `_edge_corr_ctx_lattice`) computes the correlation."""
+    M, PW = cfg.M, cfg.POSE_WINDOW
     n = state.n
-    dev = state.poses.device
     ii, jj, kk, valid = edge_table(cfg, n, state.cell_valid)
-    lattice = (NI, cfg.T, M)
     if oracle is None:
-        target0, corr_in, ctx = _edge_corr_ctx_lattice(cfg, state)
+        target0, corr_in, ctx = _edge_corr_ctx_lattice(cfg, state, corr_fn)
         net, (delta, weight) = update_fn(
             state.net.reshape(-1, DIM), ctx, corr_in, ii, jj, kk, valid,
-            lattice)
+            (cfg.NI, cfg.T, M))
     else:
         coords = _reproject_lattice_edges(cfg, state)
         P = coords.shape[1]
@@ -435,7 +438,28 @@ def _update(cfg: VOConfig, update_fn, state: VOState, oracle=None):
     weight = filter_features(weight, target, state.hw4)
     weight = torch.where(valid[:, None], weight, torch.zeros_like(weight))
 
-    # BA over the trailing window of PW logical frames starting at base
+    posew2, dwin2, win_g, k = _window_ba(cfg, state, target, weight, ii, jj,
+                                         kk, valid)
+    # write back the k live window frames; with a device k, window rows
+    # past it repeat row k - 1 (the same value written twice)
+    live = (slice(0, k) if isinstance(k, int)
+            else torch.minimum(torch.arange(PW, device=win_g.device), k - 1))
+    state.poses[win_g[live]] = posew2[live]
+    state.pat_d[win_g[live]] = dwin2.reshape(PW, M)[live]
+    if net is not None:
+        state.net.copy_(net.reshape(state.net.shape))
+    state.last_weight.copy_(weight.reshape(state.last_weight.shape))
+
+
+def _window_ba(cfg: VOConfig, state: VOState, target, weight, ii, jj, kk,
+               valid):
+    """BA over the trailing window of PW logical frames starting at base =
+    max(n - PW, 0), writing nothing: (poses' [PW, 7], inverse depths'
+    [PW * M], the window's global frame ids win_g [PW], its live frame
+    count k)."""
+    M, PW, NI = cfg.M, cfg.POSE_WINDOW, cfg.NI
+    n = state.n
+    dev = state.poses.device
     base = _at_least(n - PW, 0)
     k = n - base                                   # live window frames
     L, F = state.l2g.shape[0], state.poses.shape[0]
@@ -454,18 +478,9 @@ def _update(cfg: VOConfig, update_fn, state: VOState, oracle=None):
     posew2, dwin2 = ba_infer(
         posew, cwin, state.intrinsics, target, weight, 1e-4,
         ii - base, jj - base, kk - base * M, t0 - base, n - base,
-        N=cfg.OPTIMIZATION_WINDOW, M=PW * M, lattice=lattice,
+        N=cfg.OPTIMIZATION_WINDOW, M=PW * M, lattice=(NI, cfg.T, M),
         win_rows=win_rows, iterations=cfg.BA_ITERS, valid=valid)
-
-    # write back the k live window frames; with a device k, window rows
-    # past it repeat row k - 1 (the same value written twice)
-    live = (slice(0, k) if isinstance(k, int)
-            else torch.minimum(torch.arange(PW, device=dev), k - 1))
-    state.poses[win_g[live]] = posew2[live]
-    state.pat_d[win_g[live]] = dwin2.reshape(PW, M)[live]
-    if net is not None:
-        state.net.copy_(net.reshape(state.net.shape))
-    state.last_weight.copy_(weight.reshape(state.last_weight.shape))
+    return posew2, dwin2, win_g, k
 
 
 def _keyframe(cfg: VOConfig, state: VOState):
@@ -663,6 +678,28 @@ def _make_encode_fn(net_h: VONet):
     return encode_fn
 
 
+def _select_coords(cfg: VOConfig, event_bias: bool, events, images, hw4,
+                   sel):
+    """The new frame's patch centres [1, M, 2] at 1/4 resolution: the top
+    event-density locations of `events` [1, H, W, Ce] (event_bias), else
+    ranked by the gradient of `images` (cfg.GRADIENT_BIAS) or uniform, from
+    the draws `sel`."""
+    if event_bias:
+        return select_coords_event_bias(events, cfg.M, nms_rad=11)
+    if cfg.GRADIENT_BIAS:
+        return select_coords_gradient_bias(images[:1], cfg.M, draws=sel)
+    return select_coords_random(1, cfg.M, *hw4, draws=sel)
+
+
+def _extract(fmap, imap, images, coords):
+    """(gmap, imap vectors, patches, colors) of the new frame at `coords`
+    (unit disparities, P = 3)."""
+    disps = torch.ones((1,) + tuple(fmap.shape[1:3]), dtype=torch.float32,
+                       device=fmap.device)
+    return extract_patches(fmap.float(), imap.float(), images[:1], disps,
+                           coords, P=3)
+
+
 def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
                   event_bias: bool = True, oracle=None):
     """Build the per-frame step.
@@ -702,21 +739,10 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
     encode_fn = _make_encode_fn(net_h)
 
     def patches(events, images, fmap, imap, sel):
-        """Patch selection on `events` [1, H, W, Ce] (event_bias), on
-        `images` (gradient) or at random from the draws `sel`, and
-        extraction: (gmap, imap vectors, patches, colors) of the new
-        frame."""
-        h4, w4 = fmap.shape[1], fmap.shape[2]
-        if event_bias:
-            coords = select_coords_event_bias(events, cfg.M, nms_rad=11)
-        elif cfg.GRADIENT_BIAS:
-            coords = select_coords_gradient_bias(images[:1], cfg.M,
-                                                 draws=sel)
-        else:
-            coords = select_coords_random(1, cfg.M, h4, w4, draws=sel)
-        disps = torch.ones((1, h4, w4), dtype=torch.float32, device=dev)
-        return extract_patches(fmap.float(), imap.float(), images[:1], disps,
-                               coords, P=3)
+        """Patch selection (`_select_coords`) and extraction: (gmap, imap
+        vectors, patches, colors) of the new frame."""
+        return _extract(fmap, imap, images, _select_coords(
+            cfg, event_bias, events, images, fmap.shape[1:3], sel))
 
     @torch.no_grad()
     def frame_post(state, events, images, mask, intrinsics, fmap, imap,

@@ -357,7 +357,8 @@ def test_port_imports_no_jax():
     the TartanEvent entry point, the native event builders, the Lie
     groups, the event sequence, the seeding, timing and viz utilities,
     the data-parallel mesh, the benchmark and the ATE-parity harness (its
-    dry run runs with them blocked in tests/test_torch_harness.py)."""
+    dry run runs with them blocked in tests/test_torch_harness.py), and
+    the stage split's probe frames and breakdown."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
@@ -389,5 +390,5 @@ def test_port_imports_no_jax():
                 "data.native", "lie.groups", "lie.quaternion",
                 "data.event_sequence", "utils.seeding", "utils.timing",
                 "utils.viz", "parallel.mesh", "cli.bench",
-                "cli.real_ckpt_eval"):
+                "cli.real_ckpt_eval", "probes.frame", "probes.breakdown"):
         assert "rampvo_tpu_torch." + mod in lines, mod
