@@ -18,6 +18,8 @@
                                            # geometry and Lie groups (5f)
     python3 chip_smoke.py --truth-only     # only ground-truth tracking (5g)
                                            # and learned weights (5h)
+    python3 chip_smoke.py --train-hw-only  # only the hardware training
+                                           # run (6b)
     python3 chip_smoke.py --dp-only        # only data-parallel training (7)
     python3 chip_smoke.py --train-bench-only  # only cli.bench --train (7b)
     python3 chip_smoke.py --harness-only   # only the ATE harness (7c)
@@ -89,16 +91,21 @@ bound, K1 never launched (`run_tracking_phase`); (5h) the learned-weights
 check: 40 training steps from the JAX test's initial network on the
 in-memory synthetic scene (the loss must fall), the checkpoint saved and
 loaded back through the evaluation CLI's loader, four times; the mean
-trained ATE below 0.75 of the initial network's (`run_overfit_phase`);
-both run the drivers of tests/test_torch_tracking.py and
+trained ATE below 0.75 of the initial network's (`run_overfit_phase`,
+through `cli.overfit_synthetic.run`); 5g runs the cases of
+tests/test_torch_tracking.py, 5h the JAX test's initial network from
 tests/test_torch_overfit.py; (6) the training main path: 3 optimizer
-steps of
-the MultiScale recipe (config_net/MultiScale_TartanEvent.json) at
+steps of the MultiScale recipe (config_net/MultiScale_TartanEvent.json) at
 480x640 through the training CLI's loop on an in-memory 30-voxel window
 of the same scene, with launch counts, a checkpoint round trip, s/step,
 peak memory and a profiled step, then one step of the recipe without
-event bias (gradient_bias true, `run_selection_training`); (7c) the
-ATE-parity harness (cli/real_ckpt_eval.py) run_scenario -> evaluate ->
+event bias (gradient_bias true, `run_selection_training`); (6b) the
+hardware training run, `cli.train_hw_run` at its defaults (480x640, 15
+frames, 18 unrolled steps, M=80, 120 steps on the 60-frame synthetic
+curved scene in memory), its checkpoint restored, the random and the
+trained network through the evaluation CLI (chunk 8), launch counts,
+the loss falling, trained ATE below random (`run_hw_train_phase`); (7c)
+the ATE-parity harness (cli/real_ckpt_eval.py) run_scenario -> evaluate ->
 emit_table for a SingleScale and a MultiScale scenario on the CLI phase's
 in-memory scene with reference-format .pth weights
 (`run_harness_phase`); (7b) `cli.bench --train`: the full recipe step
@@ -115,6 +122,7 @@ CUDA and the repository around it; imports nothing of JAX or rampvo_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -2636,9 +2644,9 @@ def run_native_phase(card):
 
 def port_tests():
     """The port's test modules whose drivers the card phases run (they
-    hold what the CPU tests run, and need no JAX; importing them needs
-    pytest): tests/ at the end of the path, so that none of its names
-    shadows another module."""
+    hold what the CPU tests run, and need no JAX and nothing of
+    tests/synthetic.py; importing them needs pytest): tests/ at the end
+    of the path, so that none of its names shadows another module."""
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.append(tests)
@@ -2693,77 +2701,101 @@ def run_tracking_phase(torch, counters, card):
 OVERFIT_RUNS = 4
 
 
+def counting_span(torch, counters, spans):
+    """A `span(name)` for the CLIs' `run(span=)`: the launch counters set
+    to 0 and the peak memory reset just before the span, and
+    spans[name] = (launches, seconds, peak GiB) just after it."""
+
+    @contextlib.contextmanager
+    def span(name):
+        torch.cuda.synchronize()
+        reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        spans[name] = (launches(counters), time.perf_counter() - t,
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    return span
+
+
+def eval_launches(counters, voxels, frames):
+    """K1 and K2 launches of an evaluation that tracks every frame of
+    `voxels` (`frames` of them with an image) eagerly: the init burst,
+    one update a later frame, the 12 terminal updates; 3 encoder folds a
+    voxel."""
+    want = dict.fromkeys(counters, 0)
+    want.update({"K1": 12 + (frames - 8) + 12, "K2": 3 * voxels})
+    return want
+
+
 def run_overfit_phase(torch, counters, card):
-    """tests/test_torch_overfit.py's whole twin on the card, on the scene
-    held in memory (this machine has no h5py): 40 steps of the recipe
-    (TrainForward(n_frames=8, M=16, steps=10), AdamW 1e-4, clip 0.1) from
-    the JAX test's initial network (`overfit_init`, the CPU twin's), the
-    weights saved by save_checkpoint and loaded back by
-    cli.evaluate.load_params, then cli.evaluate.evaluate_sequence (the
-    JAX test's VOConfig, 480x640 padded frames, evaluation seed 0, the
-    JAX test's one trial). The card's atomics make each training a
-    different draw of the recipe's outcome, so it trains OVERFIT_RUNS
-    times from the same network, windows and draws (PERF.md, PR 12). Fails
-    unless every run's last loss is finite and below its first, K7 and
-    K8 launched once per unrolled step of training, the loaded weights
-    equal the trained ones, every evaluation tracked every frame (K1: the
-    init burst, one update a later frame, the 12 terminal updates; K2: 3
-    a voxel) to a finite ATE, and the mean trained ATE is below 0.75 of
-    the initial network's."""
+    """The learned-weights recipe on the card through its CLI,
+    `cli.overfit_synthetic.run` (--steps 40, --memory_scene: this
+    machine has no h5py), from the JAX test's initial network
+    (`overfit_init`, the CPU twin's): 40 steps of TrainForward(n_frames=8,
+    M=16, steps=10), AdamW 1e-4, clip 0.1, the weights saved and loaded
+    back (run raises unless they are equal), then both networks through
+    cli.evaluate.evaluate (the JAX test's VOConfig, 480x640 padded
+    frames, the JAX test's one trial, seed 0). The card's atomics make
+    each training a different draw of the recipe's outcome, so it trains
+    OVERFIT_RUNS times from the same network, windows and draws (PERF.md
+    §6); the initial network is evaluated in the first run only (its
+    evaluation is deterministic on the card: PERF.md §6). Fails unless every
+    run's last loss is finite and below its first, K7 and K8 launched
+    once per unrolled step of training and nothing else, every
+    evaluation tracked every frame (`eval_launches`) to a finite ATE,
+    and the mean trained ATE is below 0.75 of the initial one."""
     import numpy as np
 
-    from rampvo_tpu_torch.cli.evaluate import evaluate_sequence
+    from rampvo_tpu_torch.cli import overfit_synthetic as of
+    from rampvo_tpu_torch.data import synthetic
 
     _, to = port_tests()
-    scene = to.memory_scene()
-    data, ref, stamps = to.memory_eval_data(scene)
+    scene = synthetic.memory_scene(of.SCENE_FRAMES, of.H, of.W)
+    data, _, _ = synthetic.memory_eval_data(scene, of.eval_cfg("memory"))
     n_vo = int(sum(d["mask"][0] for d in data))
     want_train = dict.fromkeys(counters, 0)
-    want_train.update({"K7": to.STEPS * to.UNROLL, "K8": to.STEPS * to.UNROLL})
-    want_eval = dict.fromkeys(counters, 0)
-    want_eval.update({"K1": 12 + (n_vo - 8) + 12, "K2": 3 * len(data)})
-
-    def ate_of(net):
-        reset(counters)
-        t = time.perf_counter()
-        ate, *_ = evaluate_sequence(to.eval_config(), net,
-                                    to.eval_cfg("memory"), data, ref,
-                                    stamps, seed=0, device="cuda")
-        torch.cuda.synchronize()
-        sec, counts = time.perf_counter() - t, launches(counters)
-        if counts != want_eval:
-            fail(f"overfit evaluation: launch counts {counts}, "
-                 f"want {want_eval}")
-        if not (np.isfinite(ate) and 0 < ate < 1000.0):
-            fail(f"overfit evaluation: ATE {ate}")
-        return ate, sec
-
-    runs = []
+    want_train.update({"K7": of.STEPS * of.UNROLL, "K8": of.STEPS * of.UNROLL})
+    want_eval = eval_launches(counters, len(data), n_vo)
+    del data
+    runs, ate0 = [], None
     for _ in range(OVERFIT_RUNS):
-        ds = to.MemoryDataset(scene)    # its window sampler from its seed
-        reset(counters)
+        spans = {}
         with tempfile.TemporaryDirectory() as tmp:
-            r = to.overfit_twin(ds, "cuda", tmp)
-        torch.cuda.synchronize()
-        counts, losses = launches(counters), r["losses"]
-        if counts != want_train:
-            fail(f"overfit training: launch counts {counts}, "
+            args = of.parse_args(["--steps", str(of.STEPS), "--memory_scene",
+                                  "--out", tmp])
+            r = of.run(args, net=to.overfit_init(), scene=scene,
+                       span=counting_span(torch, counters, spans),
+                       ate_initial=ate0)
+        ate0 = r["ate_initial"]
+        losses = r["losses"]
+        if spans["train"][0] != want_train:
+            fail(f"overfit training: launch counts {spans['train'][0]}, "
                  f"want {want_train}")
+        for name in spans.keys() - {"train"}:
+            if spans[name][0] != want_eval:
+                fail(f"overfit {name}: launch counts {spans[name][0]}, "
+                     f"want {want_eval}")
         if not (np.isfinite(losses[-1]) and losses[-1] < losses[0]):
             fail(f"overfit: losses {losses}")
-        r["ate"], r["eval_s"] = ate_of(r["trained"])
+        for ate in (r["ate_initial"], r["ate_trained"]):
+            if not (np.isfinite(ate) and 0 < ate < 1000.0):
+                fail(f"overfit evaluation: ATE {ate}")
+        r["eval_s"] = [spans[n][1] for n in sorted(spans.keys() - {"train"})]
         runs.append(r)
         print("overfit phase losses: "
               + " ".join(f"{v:.6g}" for v in losses))
-    ate0, eval0 = ate_of(runs[0]["initial"])
-    ates = [r["ate"] for r in runs]
+    ates = [r["ate_trained"] for r in runs]
     mean = float(np.mean(ates))
     sec = sorted(s for r in runs for s in r["seconds"][1:])
-    print(f"overfit phase on {card} (tests/test_torch_overfit.py's recipe "
-          f"from the JAX test's initial network, 60x80 scene of 40 frames "
-          f"in memory, {len(ds)} windows, {OVERFIT_RUNS} trainings): "
-          f"losses " + ", ".join(f"{r['losses'][0]:.6g} -> "
-                                 f"{r['losses'][-1]:.6g}" for r in runs)
+    print(f"overfit phase on {card} (cli.overfit_synthetic.run --steps "
+          f"{of.STEPS} --memory_scene from the JAX test's initial network, "
+          f"60x80 scene of {of.SCENE_FRAMES} frames in memory, "
+          f"{OVERFIT_RUNS} trainings): losses "
+          + ", ".join(f"{r['losses'][0]:.6g} -> {r['losses'][-1]:.6g}"
+                      for r in runs)
           + f"; median {sec[len(sec) // 2]:.4f} s/step (first steps "
           + ", ".join(f"{r['seconds'][0]:.3f}" for r in runs)
           + f" s); training launches {want_train} each; ATE (seed 0) "
@@ -2771,13 +2803,90 @@ def run_overfit_phase(torch, counters, card):
           + ", ".join(f"{a:.6g}" for a in ates)
           + " (ratios " + ", ".join(f"{a / ate0:.4f}" for a in ates)
           + f"), mean {mean:.6g} (ratio {mean / ate0:.4f}, bound 0.75); "
-          f"evaluations ({len(data)} voxels, {n_vo} frames) "
-          + ", ".join(f"{s:.2f}" for s in [r["eval_s"] for r in runs]
-                      + [eval0])
+          f"evaluations ({want_eval['K2'] // 3} voxels, {n_vo} frames) "
+          + ", ".join(f"{s:.2f}" for r in runs for s in r["eval_s"])
           + f" s, launches {want_eval} each")
     if not mean < 0.75 * ate0:
         fail(f"overfit: mean trained ATE {mean:.6g} not below 0.75 x "
              f"initial {ate0:.6g} (ratio {mean / ate0:.4f})")
+
+
+def run_hw_train_phase(torch, counters, card):
+    """The hardware training run, `cli.train_hw_run` at its defaults on
+    the card with --memory_scene (this machine has no h5py): the
+    training CLI's loop at 480x640, 15 frames, 18 unrolled steps, M=80,
+    120 steps on the 60-frame curved scene, the checkpoint restored, then
+    the random and the trained network through cli.evaluate.evaluate
+    (chunk 8). Fails unless K7 and K8 launch once per unrolled step of
+    training and nothing else does, each evaluation launches K1 and K2
+    as an eager evaluation that tracks every frame (`eval_launches`),
+    every loss is finite, the mean of the last 10 losses is below that of
+    the first 10, the checkpoint is at step 120 and holds the trained
+    weights tensor for tensor, both ATEs are finite, and the CLI's own
+    check (trained ATE below random) passes. Returns the training's
+    launch counts."""
+    import numpy as np
+
+    from rampvo_tpu_torch.cli import train_hw_run as hw
+
+    spans = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = hw.parse_args(["--memory_scene", "--out", tmp])
+        r = hw.run(args, span=counting_span(torch, counters, spans))
+    sec = time.perf_counter() - t0
+    summary, hist = r["summary"], r["history"]
+    n_unrolled = args.steps * args.unroll
+    want_train = dict.fromkeys(counters, 0)
+    want_train.update({"K7": n_unrolled, "K8": n_unrolled})
+    if spans["train"][0] != want_train:
+        fail(f"hardware run training: launch counts {spans['train'][0]}, "
+             f"want {want_train}")
+    for tag in ("random", "trained"):
+        want = eval_launches(counters, *r["evaluations"][tag])
+        if spans[f"evaluate {tag}"][0] != want:
+            fail(f"hardware run evaluation {tag}: launch counts "
+                 f"{spans[f'evaluate {tag}'][0]}, want {want}")
+        if not (np.isfinite(summary[f"ate_{tag}"])
+                and 0 <= summary[f"ate_{tag}"] < 1000.0):
+            fail(f"hardware run evaluation {tag}: {summary}")
+    losses = [h["loss"] for h in hist]
+    if len(hist) != args.steps or not all(
+            np.isfinite(v) for h in hist for v in h.values()):
+        fail(f"hardware run: {len(hist)} steps, metrics {hist}")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    if not last < first:
+        fail(f"hardware run: mean loss of the last 10 steps {last} not "
+             f"below the first 10's {first}")
+    state = r["net"].state_dict()
+    if int(r["restored"]["step"]) != args.steps or not all(
+            torch.equal(r["restored"]["params"][k], v.cpu())
+            for k, v in state.items()):
+        fail("hardware run: the checkpoint differs from the trained net")
+    code = hw.check(summary)
+    seconds = [h["seconds"] for h in hist]
+    warm = float(np.median(seconds[1:]))
+    ratio = summary["ate_trained"] / summary["ate_random"]
+    print(f"hardware training run on {card} (cli.train_hw_run --memory_scene"
+          f": {args.hw}, {args.n_frames} frames, {args.unroll} unrolled "
+          f"steps, M=80, {args.steps} steps, {args.scene_frames}-frame "
+          f"curved scene): warm median {warm:.4f} s/step, first step "
+          f"{seconds[0]:.3f} s, wall {summary['wall_s']:.1f} s; peak device "
+          f"memory {spans['train'][2]:.2f} GiB; loss at steps "
+          + ", ".join(f"{k} {losses[k - 1]:.4f}" for k in
+                      (1, 10, 40, 100, 120) if k <= len(losses))
+          + f" (mean of the first 10 {first:.4f}, last 10 {last:.4f}); ATE "
+          f"random {summary['ate_random']:.6g}, trained "
+          f"{summary['ate_trained']:.6g} (ratio {ratio:.4f}); evaluations "
+          + ", ".join(f"{t} {spans['evaluate ' + t][1]:.1f} s "
+                      f"({r['evaluations'][t][0]} voxels, "
+                      f"{r['evaluations'][t][1]} frames)"
+                      for t in ("random", "trained"))
+          + f"; launches: training {spans['train'][0]}; phase {sec:.1f} s")
+    if code != 0:
+        fail(f"hardware run: trained ATE {summary['ate_trained']:.6g} not "
+             f"below random {summary['ate_random']:.6g}")
+    return spans["train"][0]
 
 
 # ---------------------------------------------------------------------------
@@ -3370,6 +3479,8 @@ def main() -> int:
     ap.add_argument("--truth-only", action="store_true",
                     help="only the ground-truth tracking (5g) and the "
                     "learned-weights (5h) phases")
+    ap.add_argument("--train-hw-only", action="store_true",
+                    help="only the hardware training run (6b)")
     ap.add_argument("--dp-only", action="store_true",
                     help="only the data-parallel training phase (7)")
     ap.add_argument("--train-bench-only", action="store_true",
@@ -3475,6 +3586,9 @@ def main() -> int:
         run_tracking_phase(torch, counters, card)
         run_overfit_phase(torch, counters, card)
         return 0
+    if args.train_hw_only:
+        run_hw_train_phase(torch, counters, card)
+        return 0
     if args.dp_only or args.train_bench_only or args.harness_only:
         if args.harness_only:
             run_harness_phase(torch, counters, card)
@@ -3566,6 +3680,9 @@ def main() -> int:
     run_selection_training(torch, counters, card)
     mark("training")
     torch.cuda.empty_cache()
+    n_hw = run_hw_train_phase(torch, counters, card)
+    mark("hardware training run")
+    torch.cuda.empty_cache()
     run_harness_phase(torch, counters, card)
     mark("harness")
     run_train_bench_phase(torch, counters, card)
@@ -3606,12 +3723,12 @@ def main() -> int:
              **lay["K6"]["bf16"]),
         dict(name="corr_train_fwd", source="rampvo_tpu_torch/csrc/corr_train.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:1766",
-             launches=n_tr["K7"], dp_launches=[r[0] for r in dp], **ker,
-             **k7["f32"]),
+             launches=n_tr["K7"] + n_hw["K7"], hw_train_launches=n_hw["K7"],
+             dp_launches=[r[0] for r in dp], **ker, **k7["f32"]),
         dict(name="corr_train_bwd", source="rampvo_tpu_torch/csrc/corr_train.cu",
              replaces="rampvo_tpu/ops/corr_pallas.py:2002",
-             launches=n_tr["K8"], dp_launches=[r[1] for r in dp], **ker,
-             **k8["f32"]),
+             launches=n_tr["K8"] + n_hw["K8"], hw_train_launches=n_hw["K8"],
+             dp_launches=[r[1] for r in dp], **ker, **k8["f32"]),
         dict(name="dynlane", source="rampvo_tpu_torch/csrc/probes.cu",
              replaces="scripts/probe_dynlane.py:50", **ker, **probes["P1"]),
         dict(name="grid_probe", source="rampvo_tpu_torch/csrc/probes.cu",

@@ -24,9 +24,8 @@ ran.
 runs the same path (run_scenario -> evaluate -> emit_table) on a
 synthetic 10-frame scene with seeded random weights written as a
 reference-format .pth, all under --save_dir/dryrun: the harness's own
-smoke test. The scene is rendered by tests/synthetic.py's numpy renderers
-(loaded by file path) and written by `write_scene` here; reading it needs
-h5py.
+smoke test. The scene is data/synthetic.py's `write_scene`; writing and
+reading it needs h5py.
 """
 
 from __future__ import annotations
@@ -147,63 +146,6 @@ def emit_table(rows, ref_ate, out_path):
     print(f"wrote {out_path}")
 
 
-def synthetic_module():
-    """tests/synthetic.py of this checkout, loaded by file path (only its
-    numpy renderers are used)."""
-    import importlib.util
-
-    path = osp.join(osp.dirname(osp.abspath(__file__)), "..", "..", "tests",
-                    "synthetic.py")
-    if not osp.isfile(path):
-        raise FileNotFoundError(f"--dryrun needs the checkout's {path}")
-    spec = importlib.util.spec_from_file_location("_rampvo_synthetic", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def write_scene(root: str, n_frames=10, H=60, W=80, seed=0):
-    """A TartanEvent-layout scene directory of tests/synthetic.py's
-    textured plane (its write_scene, with this package's
-    `precompute_event_indices`). Returns the synthetic module."""
-    import h5py
-    import numpy as np
-    from PIL import Image
-
-    from ..data.tartan import precompute_event_indices
-
-    syn = synthetic_module()
-    images, poses, intr = syn.render_sequence(n_frames, H, W, seed=seed)
-    x, y, t, p = syn.events_from_images(images)
-    os.makedirs(osp.join(root, "image_left"), exist_ok=True)
-    for i, img in enumerate(images):
-        arr = np.clip(img, 0, 255).astype(np.uint8)
-        Image.fromarray(np.stack([arr] * 3, -1)).save(
-            osp.join(root, "image_left", f"{i:06d}.png"))
-    with h5py.File(osp.join(root, "events.h5"), "w") as f:
-        g = f.create_group("events")
-        for k, v in (("x", x), ("y", y), ("t", t), ("p", p), ("height", H),
-                     ("width", W)):
-            g.create_dataset(k, data=v)
-    np.savetxt(osp.join(root, "timestamps.txt"), np.arange(n_frames) * 1000.0)
-    # TartanAir NED rows (the reader permutes and drops the first row)
-    ned = poses[:, [2, 0, 1, 5, 3, 4, 6]]
-    np.savetxt(osp.join(root, "pose_left.txt"),
-               np.concatenate([ned[:1], ned]), delimiter=" ")
-    fx, fy, cx, cy = (float(v) for v in intr)
-    with open(osp.join(root, "K.yaml"), "w") as f:
-        f.write(f"cam0:\n  intrinsics: [{fx}, {fy}, {cx}, {cy}]\n"
-                f"  resolution: [{W}, {H}]\n")
-    os.makedirs(osp.join(root, "depth_left"), exist_ok=True)
-    for i in range(n_frames):
-        np.save(osp.join(root, "depth_left", f"{i:06d}_left_depth.npy"),
-                np.full((H, W), 2.0 * 5.0, np.float32))
-    precompute_event_indices(
-        osp.join(root, "events.h5"), osp.join(root, "timestamps.txt"),
-        num_events=600, indices_file=osp.join(root, "indices.txt"))
-    return syn
-
-
 def write_reference_pth(path: str, net) -> None:
     """`net`'s weights as a reference checkpoint: {"model_state_dict"}
     with the "module." prefix of the reference's DataParallel saves."""
@@ -221,12 +163,13 @@ def dryrun(args):
     frames, seeded random MultiScale weights written as a reference .pth,
     a small VO config, one trial through run_scenario and emit_table,
     all under args.save_dir/dryrun."""
+    from ..data import synthetic
     from ..models.vonet import VONet, init_weights
 
     tmp = osp.join(args.save_dir, "dryrun")
-    syn = write_scene(osp.join(tmp, "data", "Synthetic", "P000"))
+    synthetic.write_scene(osp.join(tmp, "data", "Synthetic", "P000"))
     os.makedirs(tmp, exist_ok=True)
-    eval_cfg = json.loads(json.dumps(syn.EVAL_CFG))
+    eval_cfg = json.loads(json.dumps(synthetic.EVAL_CFG))
     eval_cfg["data_loader"]["test"] = {
         "test_split": ["P000"], "dataset_name": "Synthetic",
         "use_pose_pred": False}

@@ -11,7 +11,8 @@ checkpoints/<name>/ (`ckpt/train_state.py`), optional validation through
 `cli.evaluate.evaluate`, TensorBoard and wandb. Runs on the card unless
 `--device cpu` is given. `train(args)` builds the TartanEvent dataset and
 hands it to `TrainLoop`, which takes any dataset object (len and
-getitem giving the window dict).
+getitem giving the window dict); `cli/train_hw_run.py` drives it at the
+recipe's shapes.
 
 As the reference's train.py:154 does, the loop turns the dataset's
 camera-to-world poses into world-to-camera before the forward (the JAX
@@ -221,8 +222,10 @@ class TrainLoop:
                 if isinstance(t, dict) and "trial_0" in t})
 
 
-def train(args):
-    """Build the TartanEvent dataset named by the flags and train on it."""
+def train(args, M: int = 80):
+    """Build the TartanEvent dataset named by the flags and train on it
+    with M patches per frame; returns the TrainLoop (its `net` trained,
+    its `history` the steps' metrics)."""
     from ..data.tartan import TartanEventDataset
 
     with open(args.config_path) as f:
@@ -232,7 +235,9 @@ def train(args):
                                  fmax=args.fmax)
     if len(dataset) == 0:
         raise RuntimeError(f"no training scenes found under {args.data_path}")
-    return TrainLoop(args, config, dataset).run()
+    loop = TrainLoop(args, config, dataset, M=M)
+    loop.run()
+    return loop
 
 
 def parse_args(argv=None):

@@ -151,21 +151,33 @@ BLOCKED_RUN = (
     "class Block:\n"
     "    def find_spec(self, name, path=None, target=None):\n"
     "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-    " 'rampvo_tpu'):\n"
+    " 'rampvo_tpu', 'synthetic'):\n"
     "            raise ImportError('blocked: ' + name)\n"
     "sys.meta_path.insert(0, Block())\n"
+    "import importlib.util, os\n"
+    "tests = os.path.join(os.path.dirname(os.path.dirname(importlib.util"
+    ".find_spec('rampvo_tpu_torch').origin)), 'tests') + os.sep\n"
+    "opened = []\n"
+    "def audit(event, args):\n"
+    "    if event == 'open' and isinstance(args[0], str) and"
+    " os.path.abspath(args[0]).startswith(tests):\n"
+    "        opened.append(args[0])\n"
+    "sys.addaudithook(audit)\n"
     "sys.argv = ['real_ckpt_eval'] + sys.argv[1:]\n"
     "runpy.run_module('rampvo_tpu_torch.cli.real_ckpt_eval',"
     " run_name='__main__')\n"
+    "assert not opened, opened\n"
 )
 
 
 def test_dryrun_cpu_without_jax(tmp_path):
     """`python -m rampvo_tpu_torch.cli.real_ckpt_eval --dryrun --device
-    cpu` with jax, flax and rampvo_tpu blocked: writes the synthetic
+    cpu` with jax, flax, rampvo_tpu and tests/synthetic.py (`synthetic`)
+    blocked: writes the synthetic
     scene, the reference .pth and the configs under --save_dir/dryrun,
     runs the scenario through evaluate (10 frames padded to 480x640,
-    ~45 s here) and writes a one-row table with a finite ATE."""
+    ~45 s here) and writes a one-row table with a finite ATE, having
+    opened no file under tests/."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, "-c", BLOCKED_RUN, "--dryrun",
                           "--device", "cpu", "--save_dir", str(tmp_path)],

@@ -357,15 +357,20 @@ def test_port_imports_no_jax():
     the TartanEvent entry point, the native event builders, the Lie
     groups, the event sequence, the seeding, timing and viz utilities,
     the data-parallel mesh, the benchmark and the ATE-parity harness (its
-    dry run runs with them blocked in tests/test_torch_harness.py), and
-    the stage split's probe frames and breakdown."""
+    dry run runs with them blocked in tests/test_torch_harness.py), the
+    stage split's probe frames and breakdown, the synthetic scene and the
+    hardware-run and overfit CLIs. The JAX side's scene writer
+    (tests/synthetic.py, module name `synthetic`) are blocked as JAX is.
+    A second process, with `synthetic`, JAX, rampvo_tpu, h5py and
+    hdf5plugin blocked, imports chip_smoke and calls its `port_tests()`,
+    the test modules whose cases the card runs."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'rampvo_tpu', 'h5py', 'hdf5plugin', 'PIL', 'cv2', 'yaml',"
-        " 'tensorboard', 'wandb', 'matplotlib'):\n"
+        " 'tensorboard', 'wandb', 'matplotlib', 'synthetic'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import rampvo_tpu_torch\n"
@@ -390,5 +395,25 @@ def test_port_imports_no_jax():
                 "data.native", "lie.groups", "lie.quaternion",
                 "data.event_sequence", "utils.seeding", "utils.timing",
                 "utils.viz", "parallel.mesh", "cli.bench",
-                "cli.real_ckpt_eval", "probes.frame", "probes.breakdown"):
+                "cli.real_ckpt_eval", "probes.frame", "probes.breakdown",
+                "data.synthetic", "cli.overfit_synthetic",
+                "cli.train_hw_run"):
         assert "rampvo_tpu_torch." + mod in lines, mod
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax',"
+        " 'rampvo_tpu', 'h5py', 'hdf5plugin', 'synthetic'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import chip_smoke\n"
+        "tracking, overfit = chip_smoke.port_tests()\n"
+        "print(tracking.__name__, overfit.__name__, 'synthetic' in"
+        " sys.modules)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-3:] == ["test_torch_tracking",
+                                       "test_torch_overfit", "False"]

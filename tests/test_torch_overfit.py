@@ -4,14 +4,16 @@ synthetic curved scene must train (the loss falls) and its checkpoint,
 saved and loaded back through the evaluation CLI's loader, must track the
 scene better than the random initialization (ATE below 0.75 of it).
 
-The whole twin is slow on the CPU (40 optimizer steps, then two 480x640
-evaluations) and is marked so; chip_smoke.py's overfit phase runs it on
-the card (`overfit_twin`, four trainings there: the card's atomics make
-each a different draw of the recipe's outcome) with the scene held in
-memory (`memory_scene`,
-`MemoryDataset`, `memory_eval_data`: the card's machine has no h5py), which
-`test_memory_scene_matches_files` holds equal to the files. Both start
-from the JAX test's own initial network (flax `VONet.init` with
+The recipe is cli/overfit_synthetic.py's (the port of
+scripts/overfit_synthetic.py), the scene data/synthetic.py's. The whole
+twin is slow on the CPU (40 optimizer steps, then two 480x640
+evaluations) and is marked so; chip_smoke.py's overfit phase runs the
+recipe on the card through `cli.overfit_synthetic.run` (four trainings
+there: the card's atomics make each a different draw of the recipe's
+outcome) with the scene held in memory (`synthetic.memory_scene`,
+`MemoryDataset`, `memory_eval_data`: the card's machine has no h5py),
+which `test_memory_scene_matches_files` holds equal to the files. Both
+start from the JAX test's own initial network (flax `VONet.init` with
 PRNGKey(0)), kept in data/overfit_init_flax.npz so that the card, which
 has no JAX, loads it through `from_flax_params` (`overfit_init`);
 `test_overfit_init_is_jax_tests_network` holds the file equal to a fresh
@@ -20,184 +22,29 @@ Tier-1 keeps `test_overfit_loss_decreases`. The helpers need no JAX.
 """
 
 import copy
-import json
 import os
-import time
 
 import numpy as np
 import pytest
 import torch
 
-import synthetic
 from rampvo_tpu_torch.ckpt import save_checkpoint
-from rampvo_tpu_torch.cli import eval_utils as eu
 from rampvo_tpu_torch.cli.evaluate import evaluate, load_params
-from rampvo_tpu_torch.data import Events
-from rampvo_tpu_torch.data.frame_graph import build_frame_graph
-from rampvo_tpu_torch.data.loader import _voxels, make_representation
-from rampvo_tpu_torch.data.tartan import DEPTH_SCALE, TartanEventDataset
-from rampvo_tpu_torch.lie import ops as pl
+from rampvo_tpu_torch.cli.overfit_synthetic import (
+    H, N_FRAMES, STEPS, W, eval_cfg, eval_config, overfit_trainer, to_batch,
+    train_config, train_steps)
+from rampvo_tpu_torch.data import synthetic
+from rampvo_tpu_torch.data.tartan import TartanEventDataset
 from rampvo_tpu_torch.models.vonet import VONet, init_weights
 from rampvo_tpu_torch.train import TrainForward
-from rampvo_tpu_torch.train.step import Trainer
-from rampvo_tpu_torch.vo import VOConfig
 
-H, W = 60, 80
-N_FRAMES, M, UNROLL = 8, 16, 10
-STEPS = 40
 INIT_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "overfit_init_flax.npz")
-BATCH_KEYS = ("events", "images", "poses", "disps", "intrinsics", "mask")
-
-
-def overfit_trainer(net):
-    """The JAX test's optimizer, AdamW at 1e-4 (optax's default weight
-    decay 1e-4) behind a global-norm clip of 0.1, as the port's Trainer:
-    its one-cycle rate over 10**6 steps with no warm-up phase stays within
-    4e-5 of the peak for the first 40 steps, the JAX test's constant
-    rate."""
-    return Trainer(net, {"steps": 10 ** 6, "lr": 1e-4, "clip": 0.1,
-                         "weight_decay": 1e-4, "pct_start": 0.0})
-
-
-def to_batch(item, device):
-    """A dataset item as the forward's inputs on `device`, its
-    camera-to-world poses inverted to world-to-camera as the JAX test
-    does."""
-    b = {k: torch.as_tensor(np.asarray(item[k])) for k in BATCH_KEYS}
-    b["poses"] = pl.se3_inv(b["poses"].float())
-    return {k: (v if k == "mask" else v.to(device)) for k, v in b.items()}
-
-
-def train_steps(net, item_at, device, steps=STEPS, seed=1):
-    """`steps` optimizer steps of TrainForward(n_frames=8, M=16, steps=10)
-    on `net` (on `device`) over the items `item_at(step)`, draws from a
-    CPU generator seeded with `seed`. Returns (losses, seconds of each
-    step, host clock; reading the loss waits for the device)."""
-    fwd = TrainForward(net, n_frames=N_FRAMES, M=M, steps=UNROLL)
-    tr = overfit_trainer(net)
-    g = torch.Generator().manual_seed(seed)
-    losses, seconds = [], []
-    for step in range(steps):
-        t0 = time.perf_counter()
-        b = to_batch(item_at(step), device)
-        draws = fwd.draw(g, device, H, W)
-        loss, _, _ = tr.step(lambda: fwd(
-            b["events"], b["images"], b["poses"], b["disps"],
-            b["intrinsics"], b["mask"], draws=draws))
-        losses.append(float(loss))
-        seconds.append(time.perf_counter() - t0)
-    return losses, seconds
-
-
-def eval_config():
-    """The JAX test's VOConfig for both evaluations."""
-    return VOConfig(
-        BUFFER_SIZE=64, MAX_FRAMES=64, PATCHES_PER_FRAME=16,
-        REMOVAL_WINDOW=8, OPTIMIZATION_WINDOW=6, PATCH_LIFETIME=5,
-        KEYFRAME_INDEX=2, MIXED_PRECISION=False, PROBE_THRESH=-1.0, MEM=16)
-
-
-def train_config():
-    cfg = json.loads(json.dumps(synthetic.EVAL_CFG))
-    cfg["data_loader"]["train"]["args"]["n_frames"] = N_FRAMES
-    return cfg
-
-
-def eval_cfg(scene_path):
-    cfg = json.loads(json.dumps(synthetic.EVAL_CFG))
-    cfg["data_loader"]["test"] = {
-        "test_split": [scene_path], "dataset_name": "Synthetic",
-        "use_pose_pred": False}
-    return cfg
 
 
 def dataset(root):
     """The JAX test's training dataset over the scene at `root`."""
     return TartanEventDataset(train_config(), root, fmin=0.001, fmax=1000.0)
-
-
-class MemoryEvents:
-    """An event stream held in memory, read as an open H5EventHandle is
-    (`t`, `get_between_idx`)."""
-
-    def __init__(self, x, y, t, p, height, width):
-        self.x, self.y, self.t, self.p = x, y, t, p
-        self.height, self.width = height, width
-
-    def get_between_idx(self, i0, i1):
-        return Events(x=self.x[i0:i1], y=self.y[i0:i1], t=self.t[i0:i1],
-                      p=self.p[i0:i1], height=self.height, width=self.width)
-
-    def __len__(self):
-        return len(self.t)
-
-
-def memory_scene(n_frames=40):
-    """What `synthetic.write_scene(root, n_frames, 60, 80,
-    motion="curve")` writes and the readers read back, in memory: the
-    8-bit images (3 equal channels), camera-to-world poses, intrinsics,
-    the event stream, frame timestamps and indices.txt's per-frame event
-    ends (`precompute_event_indices`, 600 events)."""
-    images, poses, intr = synthetic.render_sequence(n_frames, H, W,
-                                                    motion="curve")
-    x, y, t, p = synthetic.events_from_images(images)
-    stamps = np.arange(n_frames) * 1000.0
-    i1 = np.searchsorted(t, stamps, side="right")
-    return {"images": np.repeat(np.clip(images, 0, 255).astype(
-                np.uint8)[..., None], 3, -1),
-            "poses": poses, "intrinsics": intr, "stamps": stamps,
-            "events": MemoryEvents(x, y, t, p, H, W),
-            "i0": np.clip(i1 - 600, 0, len(t) - 1), "i1": i1}
-
-
-class MemoryDataset(TartanEventDataset):
-    """The JAX test's training dataset over `memory_scene`: the dataset's
-    own scene index, frame graph, window sampling and normalization, with
-    images, depths (write_scene's 10, read as 10 / DEPTH_SCALE) and events
-    read from memory."""
-
-    read_image = staticmethod(np.asarray)
-
-    @staticmethod
-    def read_depth(depth):
-        return depth / DEPTH_SCALE
-
-    def __init__(self, scene):
-        super().__init__(train_config(), None, fmin=0.001, fmax=1000.0)
-        n = len(scene["images"])
-        poses = scene["poses"].copy()
-        poses[:, :3] /= DEPTH_SCALE
-        depths = [np.full((H, W), 2.0 * DEPTH_SCALE, np.float32)] * n
-        intr = [self.calib_read()] * n
-        self.scene_info = {"memory": {
-            "images": list(scene["images"]), "depths": depths,
-            "poses": poses, "intrinsics": intr,
-            "graph": build_frame_graph(poses, depths, intr,
-                                       self.read_depth)}}
-        self._build_dataset_index(False)
-        self.i0, self.i1 = {"memory": scene["i0"]}, {"memory": scene["i1"]}
-        self.events = scene["events"]
-
-    def load_window(self, index):
-        inds, scene_id = self.get_indices_to_load(index)
-        return self._load_sampled(inds, self.scene_info[scene_id],
-                                  self.events, self.i1[scene_id])
-
-
-def memory_eval_data(scene):
-    """What `cli.evaluate.evaluate` reads from the scene's files, from
-    `memory_scene`: (data list padded to 480x640, reference trajectory,
-    timestamps of the frames the voxels use)."""
-    intr = tuple(float(v) for v in scene["intrinsics"])    # K.yaml's
-    data_list, masks, frame_of_voxel = _voxels(
-        scene["events"], make_representation(synthetic.EVAL_CFG), 600,
-        list(scene["images"][1:]), scene["stamps"][1:], None, intr,
-        read_image=np.asarray)
-    frames = sorted(set(frame_of_voxel[np.asarray(masks)].tolist()))
-    poses = scene["poses"]
-    ref = eu.traj_from_xyzw(poses[:, :3], poses[:, 3:], scene["stamps"])
-    return data_list, ref, scene["stamps"][1:][frames]
 
 
 def overfit_twin(ds, device, ckpt_dir):
@@ -340,8 +187,9 @@ def test_memory_scene_matches_files(scene):
     from rampvo_tpu_torch.cli.evaluate import _scene_reference
     from rampvo_tpu_torch.data import data_loader_all_events
 
-    mem = memory_scene()
-    a, b = dataset(scene), MemoryDataset(mem)
+    mem = synthetic.memory_scene(40, H, W)
+    a = dataset(scene)
+    b = synthetic.MemoryDataset(mem, train_config(), fmin=0.001, fmax=1000.0)
     assert len(a) == len(b) > 1
     for idx in (1, 2, 7, len(a)):
         wa, wb = a[idx], b[idx]
@@ -350,7 +198,7 @@ def test_memory_scene_matches_files(scene):
     intr, ref, ts = _scene_reference(scene, "Synthetic")
     data_f, frames = data_loader_all_events(eval_cfg(scene), scene,
                                             intrinsics=intr)
-    data_m, ref_m, ts_m = memory_eval_data(mem)
+    data_m, ref_m, ts_m = synthetic.memory_eval_data(mem, eval_cfg(scene))
     assert len(data_f) == len(data_m) > 30
     for x, y in zip(data_f, data_m):
         for k in x:

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-import synthetic
+from rampvo_tpu_torch.data import synthetic
 from rampvo_tpu_torch.lie import ops as pl
 from rampvo_tpu_torch.models.vonet import VONet, init_weights
 from rampvo_tpu_torch.utils import ate_rmse
