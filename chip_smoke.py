@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --k3-variants    # only K3's build variants, timed
-    python3 chip_smoke.py --k6-splits      # only K6 at several block sizes
+    python3 chip_smoke.py --corr-bins      # only K6 and K5 in every build
+                                           # variant and bin tile, timed
     python3 chip_smoke.py --k1-variants    # only K1's build variants, timed
     python3 chip_smoke.py --k8-variants    # only K8's build variants, timed
     python3 chip_smoke.py --k7-variants    # only K7's build variants, timed
@@ -457,37 +458,46 @@ def max_err_nan(k, p):
     return (torch.where(nan, torch.zeros_like(k), k - p)).abs().max().item()
 
 
-def synthetic_lattice(torch, dt, seed=3, coords="spread3"):
-    """A full-size lattice (NI=25, T=25, M=96, MEM=40, 120x160 and 30x40
-    rings) at a steady-state n with a seeded mix of dead cells, and patch
-    coordinates spread over and beyond the map borders: `coords`
-    "spread3" scatters a patch's 9 pixels +-3 px around its center,
-    "patch" puts them on a 3x3 grid +-1 px with 0.2 px jitter (the shape
-    of a reprojected patch)."""
+def synthetic_lattice(torch, dt, seed=3, coords="spread3", cfg=None):
+    """A full-size lattice (the default VOConfig's NI=25, T=25, M=96,
+    MEM=40, or `cfg`'s, at 120x160 and 30x40 rings) at a steady-state n
+    with a seeded mix of dead cells, and patch coordinates spread over and
+    beyond the map borders: `coords` "spread3" scatters a patch's 9 pixels
+    +-3 px around its center, "patch" puts them on a 3x3 grid +-1 px with
+    0.2 px jitter (the shape of a reprojected patch), "adversarial" takes
+    `adversarial_coords` (slow path, borders, far and non-finite coords),
+    "clustered" puts every patch of the lattice on one spot (every edge of
+    a target in one bin of the binned kernels, the largest bins)."""
     from rampvo_tpu_torch.vo.config import VOConfig
 
-    cfg = VOConfig()
-    NI, T, r, MEM = cfg.NI, cfg.T, cfg.PATCH_LIFETIME, cfg.MEM
+    cfg = cfg or VOConfig()
+    NI, T, r, MEM, Mm = cfg.NI, cfg.T, cfg.PATCH_LIFETIME, cfg.MEM, cfg.M
     g = torch.Generator(device="cuda").manual_seed(seed)
     h1, w1 = H // 4, W // 4
-    gmap = torch.randn(MEM, M, 3, 3, 128, generator=g, device="cuda").to(dt)
+    gmap = torch.randn(MEM, Mm, 3, 3, 128, generator=g, device="cuda").to(dt)
     f1 = torch.randn(MEM, h1, w1, 128, generator=g, device="cuda").to(dt)
     f2 = torch.randn(MEM, h1 // 4, w1 // 4, 128, generator=g,
                      device="cuda").to(dt)
     NC = NI * T
-    cen = (torch.rand(NC, M, 1, 2, generator=g, device="cuda")
+    cen = (torch.rand(NC, Mm, 1, 2, generator=g, device="cuda")
            * torch.tensor([w1 + 16.0, h1 + 16.0], device="cuda") - 8.0)
-    off = torch.rand(NC, M, 9, 2, generator=g, device="cuda") * 6.0 - 3.0
-    if coords == "patch":
+    off = torch.rand(NC, Mm, 9, 2, generator=g, device="cuda") * 6.0 - 3.0
+    if coords in ("patch", "clustered"):
         off = patch_grid(torch).reshape(9, 2) + 0.2 * torch.randn(
-            NC, M, 9, 2, generator=g, device="cuda")
-    uv = (cen + off).reshape(NC, M * 9, 2)
+            NC, Mm, 9, 2, generator=g, device="cuda")
+    if coords == "clustered":
+        cen = torch.tensor([61.4, 45.6], device="cuda") + 0.3 * torch.rand(
+            NC, Mm, 1, 2, generator=g, device="cuda")
+    uv = (cen + off).reshape(NC, Mm * 9, 2)
+    if coords == "adversarial":
+        uv = adversarial_coords(torch, NC * Mm, w1, h1, g)[0].reshape(
+            NC, Mm * 9, 2)
     cell_valid = torch.rand(NI, T, generator=g, device="cuda") < 0.85
     n = 60
     slotmap = torch.full((512,), -1, dtype=torch.int64, device="cuda")
     slotmap[n - 38:n] = torch.arange(38, device="cuda") % MEM
     return (gmap, f1, f2, uv[..., 0].contiguous(), uv[..., 1].contiguous(),
-            cell_valid, n, slotmap, r, (NI, T, M))
+            cell_valid, n, slotmap, r, (NI, T, Mm))
 
 
 def adversarial_coords(torch, n, w1, h1, g, nan=True):
@@ -855,14 +865,11 @@ def check_folded(torch, ck, bk):
           "dead cells zero")
 
 
-def check_corr_layouts(torch, ck, pk, bk, outs):
-    """K4, K5 and K6 on the synthetic full-size lattice, bf16 and f32, each
-    against its plain version (tolerance as K1's: tol * max |plain|, tol =
-    1e-2 bf16 for one output rounding, 1e-5 f32 for the summation order)
-    and against K1: K6 == K1 bit for bit and K5 through paired_corr_perm ==
-    K1 bit for bit (the same per-output arithmetic, corr_window.cuh; only
-    the decomposition or the store differs), K5's 30 zero columns per
-    pixel zero; K4 with its folded finish, mapped back through
+def check_corr_layouts(torch, ck, bk, outs):
+    """K4 on the synthetic full-size lattice, bf16 and f32, against its
+    plain version (tolerance as K1's: tol * max |plain|, tol = 1e-2 bf16
+    for one output rounding, 1e-5 f32 for the summation order) and against
+    K1: K4 with its folded finish, mapped back through
     folded_corr_perm, within 2e-2 of K1's scale in bf16 (two roundings:
     the bands and the output) and 1e-5 in f32 (the blend in PyTorch's
     order). Dead cells zero in every output. K4's folded kernel (what the
@@ -871,13 +878,10 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
     tol of its plain version, and within the finish's tolerance above of
     the band + finish. Times each kernel, K4's finish, the folded kernel
     (beside the band kernel, the band + finish and its bound) and the
-    plain versions; `outs` gets {"K4"|"K5"|"K6"|"K4 finish"|"K4 folded":
-    {dtype: numbers}}."""
-    from rampvo_tpu_torch.ops.corr_perms import folded_corr_perm, \
-        paired_corr_perm
+    plain versions; `outs` gets {"K4"|"K4 finish"|"K4 folded": {dtype:
+    numbers}}. K5 and K6: `check_binned`."""
+    from rampvo_tpu_torch.ops.corr_perms import folded_corr_perm
 
-    pidx = torch.tensor(paired_corr_perm(3, 3), dtype=torch.long,
-                        device="cuda")
     finv = torch.tensor(folded_corr_perm(3, 3), dtype=torch.long,
                         device="cuda")
     check_folded(torch, ck, bk)
@@ -890,12 +894,6 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
         cells = ck.cell_tables(NI, T, r, n, cv, slotmap, MEM)
         a = (gmap, f1, f2, u, v, cells, Mm)
         k1 = ck.corr_lattice_cuda(*a)
-        tables = ck.cell_tables_a(NI, T, r, n, cv, slotmap, MEM)
-        a6 = (gmap, f1, f2, u, v, tables, Mm)
-        k6 = ck.corr_lattice_cb_cuda(*a6)
-        p6 = ck.corr_lattice_cb_ref(*a6)
-        k5 = pk.corr_lattice_paired_cuda(*a)
-        p5 = pk.corr_lattice_paired_ref(*a)
         k4 = bk.corr_bands_cuda(*a)
         p4 = bk.corr_bands_ref(*a)
         E = NI * T * Mm
@@ -908,12 +906,6 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
         torch.cuda.synchronize()
         live = (cells[:, 0] >= 0).repeat_interleave(Mm)
         scale = k1.float().abs().max().item()
-        if not torch.equal(k6, k1):
-            fail(f"K6 corr_lattice_cb {name}: differs from K1")
-        if not torch.equal(k5[:, pidx >= 0], k1[:, pidx[pidx >= 0]]) \
-                or bool((k5[:, pidx < 0] != 0).any()):
-            fail(f"K5 corr_paired {name}: differs from K1 through the perm "
-                 "or a zero column is not zero")
         back = torch.empty_like(fol)
         back[:, finv] = fol
         e41 = (back.float() - k1.float()).abs().max().item()
@@ -926,8 +918,7 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
             fail(f"K4 folded kernel {name}: max err {eff} against the band + "
                  f"finish (scale {scale})")
         errs = {}
-        for key, k, p in (("K6", k6, p6), ("K5", k5, p5), ("K4", k4, p4),
-                          ("K4 folded", kf, pf)):
+        for key, k, p in (("K4", k4, p4), ("K4 folded", kf, pf)):
             e = (k.float() - p.float()).abs().max().item()
             sc = p.float().abs().max().item()
             if not e <= tol * sc:
@@ -943,15 +934,9 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
         ins = (2 * E * 9 * 4 + g_slots * Mm * 9 * 128 * es
                + t_slots * (f1[0].numel() + f2[0].numel()) * es)
         flops = n_live * Mm * 9 * 2 * 64 * 128 * 2
-        tabs_b = {"K6": sum(x.numel() for x in tables) * 4,
-                  "K5": cells.numel() * 4, "K4": cells.numel() * 4,
-                  "K4 folded": cells.numel() * 4}
-        ncol = {"K6": 882, "K5": 1152, "K4": 1152, "K4 folded": 882}
-        runs = {"K6": (lambda: ck.corr_lattice_cb_cuda(*a6),
-                       lambda: ck.corr_lattice_cb_ref(*a6)),
-                "K5": (lambda: pk.corr_lattice_paired_cuda(*a),
-                       lambda: pk.corr_lattice_paired_ref(*a)),
-                "K4": (lambda: bk.corr_bands_cuda(*a),
+        tabs_b = {"K4": cells.numel() * 4, "K4 folded": cells.numel() * 4}
+        ncol = {"K4": 1152, "K4 folded": 882}
+        runs = {"K4": (lambda: bk.corr_bands_cuda(*a),
                        lambda: bk.corr_bands_ref(*a)),
                 "K4 folded": (lambda: bk.corr_folded_cuda(*a),
                               lambda: bk.corr_folded_ref(*a))}
@@ -983,6 +968,305 @@ def check_corr_layouts(torch, ck, pk, bk, outs):
               f"{eff:.3e}, == K1 through folded_corr_perm bit for bit")
         outs.setdefault("K4 finish", {})[name] = dict(ms=fin, bound_ms=fb)
         fold["band_ms"] = band
+
+
+BIN_SETS = ("spread3", "patch", "adversarial", "clustered")
+
+
+def binned_args(torch, ck, dt, coords, cfg=None):
+    """K1's, K6's and K5's arguments on one synthetic lattice: (K1/K5 args,
+    K6 args, cell_vmask-style live mask per edge)."""
+    (gmap, f1, f2, u, v, cv, n, slotmap, r,
+     (NI, T, Mm)) = synthetic_lattice(torch, dt, coords=coords, cfg=cfg)
+    MEM = gmap.shape[0]
+    cells = ck.cell_tables(NI, T, r, n, cv, slotmap, MEM)
+    tables = ck.cell_tables_a(NI, T, r, n, cv, slotmap, MEM)
+    return ((gmap, f1, f2, u, v, cells, Mm), (gmap, f1, f2, u, v, tables, Mm),
+            (cells[:, 0] >= 0).repeat_interleave(Mm))
+
+
+def binned_bound(torch, a, ncol, table_bytes):
+    """K1's bound on these inputs with `ncol` output columns: each output
+    written once, coords, the live host patches and target ring slots
+    read once; the dots of the live edges' exact windows."""
+    gmap, f1, f2, u, v, cells, Mm = a
+    es = gmap.element_size()
+    live = cells[:, 0] >= 0
+    E = cells.shape[0] * Mm
+    ins = (2 * E * 9 * 4 + torch.unique(cells[live, 1]).numel() * Mm * 9
+           * 128 * es + torch.unique(cells[live, 0]).numel()
+           * (f1[0].numel() + f2[0].numel()) * es)
+    flops = int(live.sum()) * Mm * 9 * 2 * 64 * 128 * 2
+    return bound_ms(E * ncol * es + ins + table_bytes, flops,
+                    "bf16" if es == 2 else "f32")
+
+
+def check_bins_built(torch, ck, cb, a6, scratch, grid, what):
+    """The bins K6's launch built on the card (read back from its scratch)
+    against the plain builder (ops/corr_bins.py::edge_bins) on the same
+    edges: every key, every bin's count and bbox equal; the permutation a
+    partition of the live edges in bin order; the work items cover each
+    bin in runs."""
+    gmap, f1, f2, u, v, tables, Mm = a6
+    E = u.numel() // 9
+    view = cb.scratch_views(scratch, E, grid)
+    groups, cells_a, walked = (t.cpu() for t in tables)
+    tb = cells_a.shape[0] // groups.shape[0]
+    slot = torch.full((E,), -1, dtype=torch.int64)
+    for g, (_, _, sl, _, lo, hi) in enumerate(groups.tolist()):
+        cenc = cells_a[g * tb + lo:g * tb + hi + 1, 0].long()
+        c = torch.where(cenc >= 0, cenc, -1 - cenc)
+        e = (c[:, None] * Mm + torch.arange(Mm)).reshape(-1)
+        slot[e] = torch.where(cenc >= 0, sl, -1).repeat_interleave(Mm)
+    key, bbox, counts = cb.edge_bins(
+        u.reshape(E, 9).cpu(), v.reshape(E, 9).cpu(), slot, f1.shape[1],
+        f1.shape[2], f2.shape[1], f2.shape[2], grid)
+    k_key = view["key"].cpu().long()
+    k_counts = view["counts"].cpu().long()
+    used = counts[:-1] > 0
+    if not (torch.equal(k_key, key) and torch.equal(k_counts, counts)
+            and torch.equal(view["bbox"].cpu().long()[used], bbox[used])):
+        fail(f"K6 bins {what}: the card's bins differ from the plain builder")
+    perm = view["perm"].cpu().long()[:int(counts.sum())]
+    if not (torch.equal(torch.sort(perm).values,
+                        torch.nonzero(key >= 0)[:, 0])
+            and bool((k_key[perm][1:] >= k_key[perm][:-1]).all())):
+        fail(f"K6 bins {what}: the permutation is not the live edges in bin "
+             "order")
+    ctrl = view["ctrl"].cpu().tolist()
+    items = view["items"].cpu()[:ctrl[0]]
+    if ctrl[0] != int(((counts[:-1] + cb.IE - 1) // cb.IE).sum()) \
+            or ctrl[1] != int(counts[-1]) or int(items[:, 2].sum()) \
+            != int(counts[:-1].sum()) or int(items[:, 2].max()) > cb.IE:
+        fail(f"K6 bins {what}: work items {ctrl} do not cover the bins")
+    return (int(used.sum()), int(counts[:-1].max()), int(counts[-1]),
+            int(counts[:-1].sum()))
+
+
+def check_binned(torch, ck, pk, cb, outs):
+    """K6 and K5 (the binned kernels) on four synthetic full-size coordinate
+    sets (pixels spread +-3 px, patch-shaped, adversarial: slow path,
+    borders, far and non-finite coords, and clustered: every patch of the
+    lattice on one spot, so every edge of a target falls in one bin), bf16
+    and f32: K6 == K1 bit for bit and K5 == K1 through paired_corr_perm bit
+    for bit (NaN outputs included), K5's zero columns zero, dead cells zero;
+    each within its tolerance of its plain version (tol * max |plain|, tol
+    = 1e-2 bf16, 1e-5 f32, NaNs at the same places; the plain versions on
+    the +-3 px and adversarial sets); the slow-path counts of K6 and K5
+    equal K1's; the bins K6 built on the card equal the plain builder's
+    (bf16). Times K1, K6 and K5 in turns on each set with their bounds, and
+    the bin building's share of K6 and K5 (device time of the bin kernels,
+    bf16 +-3 px); `outs` gets {"K5"|"K6": {dtype: numbers of the +-3 px
+    set, plus the other sets' ms}}."""
+    from rampvo_tpu_torch.ops.corr_perms import paired_corr_perm
+
+    pidx = torch.tensor(paired_corr_perm(3, 3), dtype=torch.long,
+                        device="cuda")
+    for dt, name, tol in ((torch.bfloat16, "bf16", 1e-2),
+                          (torch.float32, "f32", 1e-5)):
+        for coords in BIN_SETS:
+            a, a6, live = binned_args(torch, ck, dt, coords)
+            gmap, f1, f2, u, v, cells, Mm = a
+            E = live.numel()
+            grid = cb.bin_grid(f1.shape[1], f1.shape[2], gmap.shape[0])
+            scratch = torch.empty(cb.scratch_words(E, grid),
+                                  dtype=torch.int32, device="cuda")
+            slow_counts = (ck.corr_lattice_slow_edges,
+                           ck.corr_lattice_cb_slow_edges,
+                           pk.corr_paired_slow_edges)
+            for f in slow_counts:   # reset
+                f()
+            k1 = ck.corr_lattice_cuda(*a)
+            k6 = ck.corr_lattice_cb_cuda(*a6, scratch=scratch)
+            k5 = pk.corr_lattice_paired_cuda(*a)
+            slow = [f() for f in slow_counts]
+            torch.cuda.synchronize()
+            if not bit_equal(torch, k6, k1):
+                fail(f"K6 corr_lattice_cb {name} {coords}: differs from K1")
+            if not bit_equal(torch, k5[:, pidx >= 0].contiguous(),
+                             k1[:, pidx[pidx >= 0]].contiguous()) \
+                    or bool((k5[:, pidx < 0] != 0).any()):
+                fail(f"K5 corr_paired {name} {coords}: differs from K1 "
+                     "through the perm or a zero column is not zero")
+            if bool((k6[~live] != 0).any()) or bool((k5[~live] != 0).any()):
+                fail(f"K5/K6 {name} {coords}: a dead cell is not zero")
+            if len(set(slow)) != 1 or (coords == "adversarial") != (
+                    slow[0] > 0):
+                fail(f"K1/K6/K5 slow-path edges {slow} on {coords}")
+            bins = (check_bins_built(torch, ck, cb, a6, scratch, grid,
+                                     f"{name} {coords}")
+                    if name == "bf16" else None)
+            errs = {}
+            if coords in ("spread3", "adversarial"):
+                for key, k, p in (
+                        ("K6", k6, ck.corr_lattice_cb_ref(*a6)),
+                        ("K5", k5, pk.corr_lattice_paired_ref(*a))):
+                    err = max_err_nan(k.float(), p.float())
+                    sc = torch.nan_to_num(p.float()).abs().max().item()
+                    if err is None or not err <= tol * sc:
+                        fail(f"{key} {name} {coords}: max err {err} against "
+                             f"its plain version (scale {sc})")
+                    errs[key] = err
+            del k1, k5, k6
+            runs = {"K1": lambda: ck.corr_lattice_cuda(*a),
+                    "K6": lambda: ck.corr_lattice_cb_cuda(*a6),
+                    "K5": lambda: pk.corr_lattice_paired_cuda(*a)}
+            ms = {k: [] for k in runs}
+            for turn in ("K1", "K6", "K5", "K5", "K6", "K1"):
+                ms[turn].append(cuda_ms(runs[turn], reps=10))
+            ms = {k: sum(x) / len(x) for k, x in ms.items()}
+            tb6 = sum(x.numel() for x in a6[5]) * 4
+            b6 = binned_bound(torch, a, 882, tb6)
+            b5 = binned_bound(torch, a, 1152, cells.numel() * 4)
+            line = (f"K6/K5 {name} {coords}: K1 {ms['K1']:.4f} ms, K6 "
+                    f"{ms['K6']:.4f} ms (bound {b6[0]:.4f}, {b6[1]}), K5 "
+                    f"{ms['K5']:.4f} ms (bound {b5[0]:.4f}, {b5[1]}); K6 == "
+                    f"K1 and K5 == K1 through the perm bit for bit, slow-path "
+                    f"edges {slow[0]}")
+            if bins:
+                line += (f"; {bins[0]} bins, largest {bins[1]} edges, "
+                         f"{bins[3]} binned and {bins[2]} residual edges")
+            if errs:
+                line += (f"; max err vs plain K6 {errs['K6']:.3e}, K5 "
+                         f"{errs['K5']:.3e}")
+            print(line)
+            for key, b in (("K6", b6), ("K5", b5)):
+                o = outs.setdefault(key, {}).setdefault(name, {})
+                o[f"{coords}_ms"] = ms[key]
+                o[f"{coords}_k1_ms"] = ms["K1"]
+                if coords == "spread3":
+                    plain = cuda_ms({"K6": lambda: ck.corr_lattice_cb_ref(
+                        *a6), "K5": lambda: pk.corr_lattice_paired_ref(
+                        *a)}[key], reps=2, warm=1)
+                    o.update(ms=ms[key], plain_ms=plain, bound_ms=b[0],
+                             bound_by=b[1], max_abs_err=errs[key],
+                             k1_ms=ms["K1"])
+            if name == "bf16" and coords == "spread3":
+                for key in ("K6", "K5"):
+                    fn = runs[key]
+                    binning = (device_ms(torch, fn, "_keys")
+                               + device_ms(torch, fn, "bins_"))
+                    total = device_ms(torch, fn, "")
+                    outs[key][name]["binning_ms"] = binning
+                    outs[key][name]["device_ms"] = total
+                    print(f"{key} bf16 spread3: device time {total:.4f} ms "
+                          f"a launch, of it the bin building {binning:.4f} ms")
+
+
+def time_precise(torch, ck, pk, cb, outs):
+    """K1, K6 and K5 once at the lattice of config_vo/precise.yaml (NI = 45,
+    T = 65, M = 300: 877,500 edges) on the 480x640 rings, bf16, +-3 px and
+    patch-shaped: K6 == K1 and K5 == K1 through paired_corr_perm bit for
+    bit, each timed in turns beside its bound."""
+    from rampvo_tpu_torch.ops.corr_perms import paired_corr_perm
+    from rampvo_tpu_torch.vo.config import VOConfig
+
+    cfg = VOConfig.from_yaml(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "config_vo", "precise.yaml"))
+    pidx = torch.tensor(paired_corr_perm(3, 3), dtype=torch.long,
+                        device="cuda")
+    for coords in ("spread3", "patch"):
+        a, a6, live = binned_args(torch, ck, torch.bfloat16, coords, cfg)
+        k1 = ck.corr_lattice_cuda(*a)
+        if not bit_equal(torch, ck.corr_lattice_cb_cuda(*a6), k1):
+            fail(f"K6 at precise.yaml's lattice {coords}: differs from K1")
+        k5 = pk.corr_lattice_paired_cuda(*a)
+        if not bit_equal(torch, k5[:, pidx >= 0].contiguous(),
+                         k1[:, pidx[pidx >= 0]].contiguous()):
+            fail(f"K5 at precise.yaml's lattice {coords}: differs from K1")
+        del k1, k5
+        torch.cuda.empty_cache()
+        runs = {"K1": lambda: ck.corr_lattice_cuda(*a),
+                "K6": lambda: ck.corr_lattice_cb_cuda(*a6),
+                "K5": lambda: pk.corr_lattice_paired_cuda(*a)}
+        ms = {k: [] for k in runs}
+        for turn in ("K1", "K6", "K5", "K5", "K6", "K1"):
+            ms[turn].append(cuda_ms(runs[turn], reps=5, warm=1))
+        ms = {k: sum(x) / len(x) for k, x in ms.items()}
+        b6 = binned_bound(torch, a, 882, sum(x.numel() for x in a6[5]) * 4)
+        b5 = binned_bound(torch, a, 1152, a[5].numel() * 4)
+        print(f"precise.yaml lattice ({a[5].shape[0]} cells x {a[6]} patches, "
+              f"{int(live.sum())} live edges) bf16 {coords}: K1 "
+              f"{ms['K1']:.4f} ms, K6 {ms['K6']:.4f} ms (bound {b6[0]:.4f}, "
+              f"{b6[1]}), K5 {ms['K5']:.4f} ms (bound {b5[0]:.4f}, {b5[1]}); "
+              "K6 == K1 and K5 == K1 through the perm bit for bit")
+        for key, b in (("K6", b6), ("K5", b5)):
+            outs[key]["bf16"][f"precise_{coords}"] = dict(
+                ms=ms[key], k1_ms=ms["K1"], bound_ms=b[0])
+        del a, a6
+        torch.cuda.empty_cache()
+
+
+CB_VARIANTS = (             # (label, -D defines of csrc/corr_bins.cuh)
+    ("8 warps, items of 64, boxes <= 12, 4 n-tiles interleaved (shipped)",
+     ()),
+    ("8 warps, items of 16", ("CB_K=2",)),
+    ("4 warps, items of 64", ("CB_WARPS=4", "CB_K=16")),
+    ("12 warps, items of 60", ("CB_WARPS=12", "CB_K=5")),
+    ("8 warps, 2 n-tiles interleaved", ("CB_ILP=2",)),
+    ("8 warps, boxes <= 14 (raw rows of 200 floats)", ("CB_BMAX=14",)),
+    ("binned order only: 8 warps, items of 64, loads from global memory",
+     ("CB_STAGE=0",)),
+)
+
+
+def compare_corr_bins(torch, ck, pk, cb, build):
+    """`--corr-bins`: K6 and K5 on the synthetic full-size lattice (bf16,
+    +-3 px and patch-shaped, each tile) and at precise.yaml's lattice
+    (patch-shaped, the shipped tile) for each build variant (CB_VARIANTS),
+    against K1 in the same process: each must equal K1 bit for bit
+    (K5 through the perm); prints each one's time, K1's in turns beside
+    it. Variants whose shared memory does not fit a block are listed as
+    such."""
+    from rampvo_tpu_torch.ops.corr_perms import paired_corr_perm
+
+    pidx = torch.tensor(paired_corr_perm(3, 3), dtype=torch.long,
+                        device="cuda")
+    logs = build.build_all(["corr_lattice"] + [
+        (lib, d) for _, d in CB_VARIANTS
+        for lib in ("corr_lattice_cb", "corr_paired")])
+    for it, log in logs.items():
+        if isinstance(it, tuple):
+            used = [ln for ln in ptxas_lines(log) if "registers" in ln]
+            print(f"  ptxas {it}: {used}")
+    grids = (((12, 12), 12, 9), ((16, 8), 12, 9), ((8, 8), 12, 9),
+             ((16, 4), 12, 9), ((8, 8), 14, 10))
+    from rampvo_tpu_torch.vo.config import VOConfig
+
+    precise = VOConfig.from_yaml(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "config_vo", "precise.yaml"))
+    for coords, cfg in (("spread3", None), ("patch", None),
+                        ("patch", precise)):
+        a, a6, _ = binned_args(torch, ck, torch.bfloat16, coords, cfg)
+        k1 = ck.corr_lattice_cuda(*a)
+        f1 = a[1]
+        for label, d in CB_VARIANTS:
+            times = []
+            for ts, b1, b2 in grids[:1] if cfg else grids:
+                grid = cb.bin_grid(f1.shape[1], f1.shape[2], f1.shape[0], ts,
+                                   b1, b2)
+                try:
+                    k6 = ck.corr_lattice_cb_cuda(*a6, grid=grid, defines=d)
+                    k5 = pk.corr_lattice_paired_cuda(*a, grid=grid,
+                                                     defines=d)
+                except RuntimeError as e:
+                    times.append(f"ts={ts} b1={b1} b2={b2} does not fit ({e})")
+                    continue
+                if not bit_equal(torch, k6, k1) or not bit_equal(
+                        torch, k5[:, pidx >= 0].contiguous(),
+                        k1[:, pidx[pidx >= 0]].contiguous()):
+                    fail(f"--corr-bins {label} ts={ts}: differs from K1")
+                del k5, k6
+                reps = 3 if cfg else 10
+                t6 = cuda_ms(lambda: ck.corr_lattice_cb_cuda(
+                    *a6, grid=grid, defines=d), reps=reps)
+                t1 = cuda_ms(lambda: ck.corr_lattice_cuda(*a), reps=reps)
+                t5 = cuda_ms(lambda: pk.corr_lattice_paired_cuda(
+                    *a, grid=grid, defines=d), reps=reps)
+                times.append(f"ts={ts} b1={b1} b2={b2}: K6 {t6:.4f} K5 "
+                             f"{t5:.4f} (K1 {t1:.4f})")
+            what = coords + (" at precise.yaml's lattice" if cfg else "")
+            print(f"corr bins {what}, {label}, ms: " + "; ".join(times))
 
 
 def probe_device_us(torch, launch, variants, n=100):
@@ -1082,29 +1366,6 @@ def check_probes(torch, p1, p2, counters, outs):
                       noop_ms=p2ms["noop"], one_output_ms=p2ms["one"],
                       host_issue_ms=host_ms,
                       device_us={k: round(v, 4) for k, v in dev_us.items()})
-
-
-def compare_k6_splits(torch, ck, splits=(1, 2, 4, 8, 16, 32)):
-    """`--k6-splits`: K6 on the synthetic full-size lattice (bf16, f32) with
-    each number of patches per block, against K1 in the same process:
-    each must equal K1 bit for bit; prints each one's time."""
-    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        (gmap, f1, f2, u, v, cv, n, slotmap, r,
-         lat) = synthetic_lattice(torch, dt)
-        NI, T, Mm = lat
-        cells = ck.cell_tables(NI, T, r, n, cv, slotmap, gmap.shape[0])
-        tables = ck.cell_tables_a(NI, T, r, n, cv, slotmap, gmap.shape[0])
-        a = (gmap, f1, f2, u, v, cells, Mm)
-        a6 = (gmap, f1, f2, u, v, tables, Mm)
-        k1 = ck.corr_lattice_cuda(*a)
-        times = [f"K1 {cuda_ms(lambda: ck.corr_lattice_cuda(*a), reps=20):.4f}"]
-        for eb in splits:
-            if not torch.equal(ck.corr_lattice_cb_cuda(*a6, eb=eb), k1):
-                fail(f"K6 with {eb} patches per block differs from K1")
-            ms = cuda_ms(lambda: ck.corr_lattice_cb_cuda(*a6, eb=eb), reps=20)
-            times.append(f"eb={eb} ({tables[0].shape[0] * -(-Mm // eb)} "
-                         f"group blocks) {ms:.4f}")
-        print(f"K6 patches per block, {name}, ms: " + ", ".join(times))
 
 
 def synthetic_corr_train(torch, dt, seed=5, coords="patch"):
@@ -1570,7 +1831,7 @@ def run_eviction_pass(torch, frames):
 # ---------------------------------------------------------------------------
 
 CHUNK_K = 8
-EAGER_PAIRS, EAGER_TURN = 3, 10    # host-driven / branchless pairs, frames
+EAGER_PAIRS, EAGER_TURN = 2, 10    # host-driven / branchless pairs, frames
 ENC_KERNEL = {"MultiScale": ("lstm_fold_cm", 3),
               "SingleScale": ("lstm_carry_fold_cm", 1)}
 CORR_WRAPPER = {"fused3": "corr_lattice", "fused4": "corr_lattice_cb",
@@ -1884,7 +2145,7 @@ def run_chunk_path(torch, p2, frames, intr):
 # phase 4c: the VO frame split by stage
 # ---------------------------------------------------------------------------
 
-BREAKDOWN_TURNS = 5
+BREAKDOWN_TURNS = 3
 BREAKDOWN_RUNS = (("MultiScale", None),
                   ("SingleScale", "all,no_encoder,zero_corr"))
 CORR_OFF = ("zero_corr", "oracle", "no_update", "oracle_ba1", "oracle_ba0")
@@ -3452,8 +3713,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k3-variants", action="store_true",
                     help="only compare the K3 build variants")
-    ap.add_argument("--k6-splits", action="store_true",
-                    help="only time K6 at several patches per block")
+    ap.add_argument("--corr-bins", action="store_true",
+                    help="only time K6 and K5 in every build variant and "
+                    "bin tile against K1")
     ap.add_argument("--k1-variants", action="store_true",
                     help="only compare the K1 build variants")
     ap.add_argument("--k8-variants", action="store_true",
@@ -3502,6 +3764,7 @@ def main() -> int:
     try:
         from rampvo_tpu_torch.ops import build
         from rampvo_tpu_torch.ops import corr_band_kernels as bk
+        from rampvo_tpu_torch.ops import corr_bins as cb
         from rampvo_tpu_torch.ops import corr_kernels as ck
         from rampvo_tpu_torch.ops import corr_paired_kernels as pk
         from rampvo_tpu_torch.ops import corr_train_kernels as ctk
@@ -3527,9 +3790,8 @@ def main() -> int:
     if args.k3_variants:
         compare_k3_variants(torch, sk, build)
         return 0
-    if args.k6_splits:
-        build.build_all(["corr_lattice", "corr_lattice_cb"])
-        compare_k6_splits(torch, ck)
+    if args.corr_bins:
+        compare_corr_bins(torch, ck, pk, cb, build)
         return 0
     if args.k1_variants or args.k8_variants or args.k7_variants \
             or args.k2_variants:
@@ -3621,7 +3883,9 @@ def main() -> int:
     k2, k1, k3, k7, k8, lay, probes = {}, {}, {}, {}, {}, {}, {}
     check_lstm_fold(torch, ek, k2)
     check_corr_lattice(torch, ck, k1)
-    check_corr_layouts(torch, ck, pk, bk, lay)
+    check_corr_layouts(torch, ck, bk, lay)
+    check_binned(torch, ck, pk, cb, lay)
+    time_precise(torch, ck, pk, cb, lay)
     check_lstm_carry_fold(torch, sk, k3)
     check_enc_bins(torch, ek, sk, k2, k3)
     check_corr_train(torch, ctk, k7, k8)

@@ -1,132 +1,128 @@
-// Cell-batched, target-major lattice correlation (Hopper).
+// Target-binned lattice correlation in the reference layout (Hopper).
 //
 // Replaces the TPU kernel rampvo_tpu/ops/corr_pallas.py::corr_lattice_fused4
 // (body _kernel_lat_fused4, tables _cell_tables_a). Its function is K1's
-// (csrc/corr_lattice.cu): the reference layout [E, 882], dead cells zero.
-// What it keeps from the TPU kernel is the decomposition: work is grouped
-// per (target frame a, t-band of TB offsets), and each group walks its live
-// t-range [lo, hi] with a loop whose bounds it reads from the group table
-// (ops/corr_kernels.py::cell_tables_a), so one group's cells all read the
-// same target slot (the feature ring of one frame stays hot in L2 while the
-// group runs). Its work item is a (cell, patch) edge handled by one warp
-// with K1's per-edge routine (corr_window.cuh::edge: window unions,
-// mma.sync dots, the exact slow path), so K6 equals K1 bit for bit.
+// (csrc/corr_lattice.cu): the reference layout [E, 882], dead cells and
+// cells no group walks zero. What it takes from the TPU kernel is the
+// grouping of the work by target frame: the edges it computes are those
+// its walk tables reach (ops/corr_kernels.py::cell_tables_a: per (target
+// a, t-band) group the live t-range [lo, hi]), and it computes them target
+// by target. Not copied: the TPU kernel's padded rings, strips, lane rolls
+// and SPREAD clamp, its target-major output and the row gather that
+// restores lattice order (corr_pallas.py:1625-1640); each edge's row is
+// written in place.
 //
-// Differences from the TPU kernel. A block writes its own output rows in
-// lattice order, so the target-major output and the row gather that
-// restores lattice order (corr_pallas.py:1625-1640) are not copied. TB = 13
-// gives NTGT * ceil(T / TB) = 36 * 2 = 72 groups at the main path's
-// lattice, too few blocks for 132 SMs, and of very unequal work (0 to 13
-// cells); so each group is also split over ranges of EB patches (EB = 4:
-// 72 * 24 = 1728 blocks of 4 warps, one patch per warp and cell;
-// `chip_smoke.py --k6-splits` times EB = 1..32 against K1). Cells
-// that no group walks (host below 0, or target outside the last NTGT
-// frames) are zeroed by the grid's trailing NC blocks, one per lattice
-// cell, which write zeros where cell_tables_a's `walked` is 0; cells a
-// group walks but that are dead (cell_valid false) get zeros from the
-// group. The zero fill is part of this launch and of its time.
+// Design (corr_bins.cuh): `cb_keys`, one warp per (group, t, patch) of the
+// walk, bins each walked live edge by (target slot, level-1 tile) or sends
+// it to the residual list, and writes the zero rows of dead walked cells;
+// its trailing warps, one per lattice edge, write the zero rows of the
+// cells no group walks. Then the scan, the scatter and the persistent
+// blocks that stage each bin's target taps in shared memory and run K1's
+// per-edge arithmetic with RefStore's blends on them (bf16), or K1's
+// global-memory routine on the binned order (float32); residual edges run
+// K1's routine in the same launch. So K6 equals K1 bit for bit. The bin building, the zero
+// fills and the residual edges are all part of this launch and its time.
 //
-// Bound on the H100: bytes, as K1's: E * 882 output values (106 MB in
-// bf16 at E = 60000) plus the touched ring slots.
+// Bound on the H100: bytes, as K1's: E * 882 output values (106 MB in bf16
+// at E = 60000) plus the touched ring slots.
 
-#include "corr_window.cuh"
+#include "corr_bins.cuh"
 
 namespace {
 
-using namespace corrwin;
+using namespace corrbins;
 
 // groups [NB, 6] int32 (a, t-band, target slot, out row, lo, hi; an empty
 // group has lo > hi); cells_a [NB * TB, 2] int32 at g * TB + tc (lattice
-// cell c, or -1 - c when the cell is dead; host gmap slot); walked [NC]
-// int32.
+// cell c, or -1 - c when the cell is dead; host gmap slot); walked [NC].
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-corr_lattice_cb_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
-                       const T* __restrict__ fmap2,
-                       const float* __restrict__ u,
-                       const float* __restrict__ v,
-                       const int* __restrict__ groups,
-                       const int* __restrict__ cells_a,
-                       const int* __restrict__ walked, T* __restrict__ out,
-                       int NB, int splits, int EB, int TB, int M,
-                       int H1, int W1, int H2, int W2) {
-  constexpr int NCOL = RefStore::NCOL;
-  __shared__ __align__(16) float raw[WARPS][RAW + RefStore::STAGE];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int blk = blockIdx.x;
-  if (blk >= NB * splits) {  // zero fill of one unwalked lattice cell
-    const int c = blk - NB * splits;
-    if (walked[c]) return;
-    T* base = out + (size_t)c * M * NCOL;
-    const size_t n = (size_t)M * NCOL;
-    if ((n * sizeof(T)) % 16 == 0) {
-      uint4* p = reinterpret_cast<uint4*>(base);
-      const size_t n16 = n * sizeof(T) / 16;
-      for (size_t i = threadIdx.x; i < n16; i += blockDim.x)
-        p[i] = make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      for (size_t i = 2 * threadIdx.x; i < n; i += 2 * blockDim.x)
-        Vec<T>::store2(base + i, 0.f, 0.f);  // NCOL is even
-    }
+__global__ void __launch_bounds__(KEY_WARPS * 32)
+cb_keys(const float* __restrict__ u, const float* __restrict__ v,
+        const int* __restrict__ groups, const int* __restrict__ cells_a,
+        const int* __restrict__ walked, T* __restrict__ out, Scratch s,
+        Grid g, int NB, int TB, int NC, int M, int H1, int W1, int H2,
+        int W2) {
+  const int lane = threadIdx.x & 31;
+  const long w = (long)blockIdx.x * KEY_WARPS + (threadIdx.x >> 5);
+  const long nwalk = (long)NB * TB * M;
+  if (w >= nwalk) {  // zero rows of the cells no group walks
+    const long e = w - nwalk;
+    if (e >= (long)NC * M || walked[e / M]) return;
+    RefStoreRows::dead<T>(out + e * RefStoreRows::NCOL, lane);
+    no_bin(s, (int)e, lane);
     return;
   }
-  // The group's live t-range x the block's patches, one (cell, patch) edge
-  // per warp and turn. The tables are read again each turn (L1) rather
-  // than held in registers across the edge routine.
-  const int g = blk / splits, m0 = (blk % splits) * EB;
-  const int npatch = min(EB, M - m0);
-  const int lo = groups[6 * g + 4];
-  const int total = (groups[6 * g + 5] - lo + 1) * npatch;  // <= 0: empty
-  for (int it = warp; it < total; it += WARPS) {
-    const int tc = lo + it / npatch, m = m0 + it % npatch;
-    const int* ce = cells_a + 2 * ((size_t)g * TB + tc);
-    const int cenc = ce[0], gslot = ce[1], slot_j = groups[6 * g + 2];
-    const int c = cenc >= 0 ? cenc : -1 - cenc;
-    const size_t e = (size_t)c * M + m;
-    T* orow = out + e * NCOL;
-    if (cenc < 0) {
-      RefStore::dead<T>(orow, lane);
-      continue;
-    }
-    edge<T, RefStore>(gmap + ((size_t)gslot * M + m) * PP * C,
-                      fmap1 + (size_t)slot_j * H1 * W1 * C,
-                      fmap2 + (size_t)slot_j * H2 * W2 * C, H1, W1, H2, W2,
-                      u + e * PP, v + e * PP, raw[warp], lane, orow);
+  const int grp = (int)(w / ((long)TB * M));
+  const int r = (int)(w - (long)grp * TB * M);
+  const int tc = r / M, m = r - tc * M;
+  if (tc < groups[6 * grp + 4] || tc > groups[6 * grp + 5]) return;
+  const int* ce = cells_a + 2 * ((size_t)grp * TB + tc);
+  const int cenc = ce[0];
+  const int c = cenc >= 0 ? cenc : -1 - cenc;
+  const int e = c * M + m;
+  if (cenc < 0) {
+    RefStoreRows::dead<T>(out + (size_t)e * RefStoreRows::NCOL, lane);
+    no_bin(s, e, lane);
+    return;
   }
+  bin_edge(s, g, e, groups[6 * grp + 2], ce[1], u + (size_t)e * PP,
+           v + (size_t)e * PP, H1, W1, H2, W2, lane);
 }
 
 template <typename T>
 int launch(const void* gmap, const void* fmap1, const void* fmap2,
            const void* u, const void* v, const void* groups,
-           const void* cells_a, const void* walked, void* out, int NB,
-           int NC, int EB, int TB, int M, int H1, int W1, int H2, int W2,
-           cudaStream_t s) {
-  const int splits = (M + EB - 1) / EB;
-  corr_lattice_cb_kernel<T><<<NB * splits + NC, WARPS * 32, 0, s>>>(
-      static_cast<const T*>(gmap), static_cast<const T*>(fmap1),
-      static_cast<const T*>(fmap2), static_cast<const float*>(u),
-      static_cast<const float*>(v), static_cast<const int*>(groups),
-      static_cast<const int*>(cells_a), static_cast<const int*>(walked),
-      static_cast<T*>(out), NB, splits, EB, TB, M, H1, W1, H2, W2);
-  return (int)cudaGetLastError();
+           const void* cells_a, const void* walked, void* out, void* scratch,
+           long scratch_n, const int* gi, int NB, int NC, int TB, int M,
+           int H1, int W1, int H2, int W2, cudaStream_t st) {
+  const Grid g = grid_from(gi);
+  const int E = NC * M;
+  if ((size_t)scratch_n < scratch_words(E, g))
+    return (int)cudaErrorInvalidValue;
+  const Scratch s = carve(static_cast<int*>(scratch), E, g);
+  int err = start(s, g, st);
+  if (err) return err;
+  const long warps = (long)NB * TB * M + E;
+  cb_keys<T><<<(warps + KEY_WARPS - 1) / KEY_WARPS, KEY_WARPS * 32, 0, st>>>(
+      static_cast<const float*>(u), static_cast<const float*>(v),
+      static_cast<const int*>(groups), static_cast<const int*>(cells_a),
+      static_cast<const int*>(walked), static_cast<T*>(out), s, g, NB, TB,
+      NC, M, H1, W1, H2, W2);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  Args<T> a{static_cast<const T*>(gmap), static_cast<const T*>(fmap1),
+            static_cast<const T*>(fmap2), static_cast<const float*>(u),
+            static_cast<const float*>(v), static_cast<T*>(out), E, M, H1, W1,
+            H2, W2, 0};
+  return finish<T, RefStoreRows>(a, s, g, st);
 }
 
 }  // namespace
 
 // gmap, fmap1, fmap2, u, v as corr_lattice_launch (csrc/corr_lattice.cu);
 // groups [NB, 6], cells_a [NB * TB, 2] and walked [NC] int32 from
-// ops/corr_kernels.py::cell_tables_a; out [NC * M, 882]. Returns the
-// cudaError_t of the launch.
+// ops/corr_kernels.py::cell_tables_a; out [NC * M, 882]; scratch
+// `scratch_n` int32 words (ops/corr_bins.py::scratch_words); gi the bin
+// grid (ops/corr_bins.py::BinGrid, in field order, host memory). Returns the
+// cudaError_t of the launches.
 extern "C" int corr_lattice_cb_launch(
     const void* gmap, const void* fmap1, const void* fmap2, const void* u,
     const void* v, const void* groups, const void* cells_a,
-    const void* walked, void* out, int NB, int NC, int EB, int TB, int M,
-    int H1, int W1, int H2, int W2, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const void* walked, void* out, void* scratch, long scratch_n,
+    const int* gi, int NB, int NC, int TB, int M, int H1, int W1, int H2,
+    int W2, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(gmap, fmap1, fmap2, u, v, groups, cells_a,
-                                 walked, out, NB, NC, EB, TB, M, H1, W1, H2,
-                                 W2, s);
-  return launch<float>(gmap, fmap1, fmap2, u, v, groups, cells_a, walked,
-                       out, NB, NC, EB, TB, M, H1, W1, H2, W2, s);
+                                 walked, out, scratch, scratch_n, gi, NB, NC,
+                                 TB, M, H1, W1, H2, W2, st);
+  return launch<float>(gmap, fmap1, fmap2, u, v, groups, cells_a, walked, out,
+                       scratch, scratch_n, gi, NB, NC, TB, M, H1, W1, H2, W2,
+                       st);
+}
+
+// Edges of this library's launches that took K1's slow path (all of them
+// residual edges) since the last reset, as corr_lattice_slow_edges.
+extern "C" int corr_lattice_cb_slow_edges(unsigned int* count, int reset) {
+  return corrbins::read_slow_edges(count, reset);
 }

@@ -1,6 +1,8 @@
 // Shared device code of the correlation kernels (K1 corr_lattice, K4
 // corr_bands, K5 corr_paired, K6 corr_lattice_cb, and the training
-// forward K7 in corr_train.cu): the per-edge routine.
+// forward K7 in corr_train.cu): the per-edge routine. K5 and K6 run it on
+// the edges their bins leave over and its arithmetic on shared-memory
+// taps (corr_bins.cuh).
 //
 // The function, per edge (patch features gp [9, 128], target maps f1, f2,
 // level-1 coords of the 9 patch pixels): the exact 8x8 raw windows
@@ -59,9 +61,14 @@
 // `edge<T, S>`, so kernels that share a policy's arithmetic agree bit for
 // bit.
 //
-// What bounds it now: the box taps' reads from L2 (~2-3 GB a launch at
+// What bounds it: the box taps' reads from L2 (~2-3 GB a launch at
 // ~5 TB/s, measured by chip_smoke.py), not device memory and not the
-// tensor cores; grouping the edges by target slot (K6) changes nothing.
+// tensor cores. One warp per edge shares no tap read with another warp,
+// so grouping the edges alone changes nothing; K5 and K6 (corr_bins.cuh)
+// bin the edges by target tile and stage each bin's taps in shared memory
+// once, then run this routine's arithmetic on them (dots_mma's loads and
+// mma sequence, the Store policies' blends), so their outputs stay K1's
+// bit for bit.
 
 #pragma once
 

@@ -10,8 +10,10 @@ reference layout [E, 2*49*9] that corr_fc1 reads unpermuted (corr_stack).
 Edges of dead cells are zero. Unlike the TPU kernel there is no SPREAD
 clamp: every window is exact.
 
-K6 computes the same function with work grouped per (target frame,
-t-band) and bit-identical arithmetic. `corr_lattice` / `corr_lattice_cb`
+K6 computes the same function over the edges its walk tables reach (per
+(target frame, t-band) group), binned by target tile on the card with
+each bin's taps staged in shared memory (ops/corr_bins.py), with
+bit-identical arithmetic. `corr_lattice` / `corr_lattice_cb`
 launch their kernel for CUDA tensors and run `corr_lattice_ref` /
 `corr_lattice_cb_ref` for CPU tensors; nothing falls back. The K4 and K5
 wrappers (ops/corr_band_kernels.py, ops/corr_paired_kernels.py) share
@@ -357,8 +359,6 @@ corr_lattice.launches = 0
 # ---------------------------------------------------------------------------
 
 TB = 13    # lattice offsets t per group (the reference's TB4)
-EB = 4     # patches per block of a group (csrc/corr_lattice_cb.cu: one
-           # per warp; chip_smoke.py --k6-splits times the choices)
 
 
 def cell_tables_a(NI: int, T: int, r: int, n, cell_valid, slotmap,
@@ -459,18 +459,27 @@ def corr_lattice_cb_ref(gmap_r, fmap1_r, fmap2_r, u, v, tables, M: int):
     return out
 
 
-_SIG_CB = {"corr_lattice_cb_launch": [ctypes.c_void_p] * 9
-           + [ctypes.c_int] * 10 + [ctypes.c_void_p]}
+_SIG_CB = {"corr_lattice_cb_launch": [ctypes.c_void_p] * 10
+           + [ctypes.c_long, ctypes.c_void_p] + [ctypes.c_int] * 9
+           + [ctypes.c_void_p],
+           "corr_lattice_cb_slow_edges": [ctypes.POINTER(ctypes.c_uint),
+                                          ctypes.c_int]}
 
 
 def corr_lattice_cb_cuda(gmap_r, fmap1_r, fmap2_r, u, v, tables, M: int,
-                         eb: int = EB):
-    """Launch K6 (same contract as `corr_lattice_cb_ref`); `eb` patches
-    per block."""
+                         grid=None, defines=(), scratch=None):
+    """Launch K6 (same contract as `corr_lattice_cb_ref`): the edges
+    binned by target tile (`grid`, ops/corr_bins.py::bin_grid's default
+    for these maps when None), each bin's taps staged in shared memory.
+    `defines` picks a build variant; `scratch` an int32 buffer of
+    corr_bins.scratch_words words to build the bins in (chip_smoke.py
+    reads the bins back from it), else a new one."""
+    from . import corr_bins
+
     groups, cells_a, walked = tables
     check_lattice_inputs("corr_lattice_cb", gmap_r, fmap1_r, fmap2_r, u, v,
                          M, tables)
-    _, H1, W1, _ = fmap1_r.shape
+    MEM, H1, W1, _ = fmap1_r.shape
     _, H2, W2, _ = fmap2_r.shape
     NB, NC = groups.shape[0], walked.shape[0]
     if u.numel() != NC * M * 9 or groups.shape[1:] != (6,) \
@@ -479,12 +488,16 @@ def corr_lattice_cb_cuda(gmap_r, fmap1_r, fmap2_r, u, v, tables, M: int,
     dt = gmap_r.dtype
     out = torch.empty((NC * M, 2 * (2 * RADIUS + 1) ** 2 * 9), dtype=dt,
                       device=gmap_r.device)
-    lib = build.load("corr_lattice_cb", _SIG_CB)
+    grid = grid or corr_bins.bin_grid(H1, W1, MEM)
+    scratch, gi = corr_bins.launch_scratch(NC * M, grid, gmap_r.device,
+                                           scratch)
+    lib = build.load("corr_lattice_cb", _SIG_CB, defines)
     err = lib.corr_lattice_cb_launch(
         gmap_r.data_ptr(), fmap1_r.data_ptr(), fmap2_r.data_ptr(),
         u.data_ptr(), v.data_ptr(), groups.data_ptr(), cells_a.data_ptr(),
-        walked.data_ptr(), out.data_ptr(), NB, NC, eb, cells_a.shape[0] // NB,
-        M, H1, W1, H2, W2, int(dt == torch.bfloat16),
+        walked.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), gi, NB, NC, cells_a.shape[0] // NB, M, H1, W1, H2,
+        W2, int(dt == torch.bfloat16),
         torch.cuda.current_stream(gmap_r.device).cuda_stream,
     )
     build.check(err, "corr_lattice_cb_launch")
@@ -492,10 +505,20 @@ def corr_lattice_cb_cuda(gmap_r, fmap1_r, fmap2_r, u, v, tables, M: int,
     return out
 
 
+def corr_lattice_cb_slow_edges(reset: bool = True, defines=()) -> int:
+    """How many edges of K6's launches took K1's slow path (residual edges
+    with a span beyond CAP) since the last reset; waits for the device."""
+    lib = build.load("corr_lattice_cb", _SIG_CB, defines)
+    n = ctypes.c_uint(0)
+    build.check(lib.corr_lattice_cb_slow_edges(ctypes.byref(n), int(reset)),
+                "corr_lattice_cb_slow_edges")
+    return n.value
+
+
 def corr_lattice_cb(gmap_r, fmap1_r, fmap2_r, u, v, cell_valid, n,
                     slotmap, r: int, lat, tb: int = TB):
     """`corr_lattice`'s function and contract ([NI*T*M, 882], the
-    reference layout) through K6's target-major decomposition
+    reference layout) through K6's walk tables and binned kernel
     (CORR_LAYOUT "fused4")."""
     NI, T, M = lat
     tables = cell_tables_a(NI, T, r, n, cell_valid, slotmap,
