@@ -1,0 +1,1 @@
+"""Frozen copy, see vobench/reference/__init__.py."""
