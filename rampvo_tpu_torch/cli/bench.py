@@ -16,10 +16,10 @@ and seeded random weights (`init_weights`, seed 0) drive
 lattice), one chunk that captures the CUDA graph, then the best of two
 passes over `--frames` frames (cut to a multiple of K), each pass ending
 in a synchronize. The frames are made on the device before any timing.
-On the card a line before the last gives the card, the device-busy
-ms/frame and the kernels a frame (torch.profiler over one chunk). The last line is one JSON object
-{"metric", "value", "unit", "device"}: frames/s, named by input mode and
-size.
+A line before the last gives the device and the ms/frame (device busy
+time and kernels a frame: the benchmark's traced runs, `vobench/`). The
+last line is one JSON object {"metric", "value", "unit", "device"}:
+frames/s, named by input mode and size.
 
     python -m rampvo_tpu_torch.cli.bench --breakdown [--variants a,b,...]
         [--turns 5] [--warm 40] [--chunk 8] [--input_mode ...]
@@ -115,24 +115,6 @@ def breakdown(args, dev) -> dict:
                          args.variants.split(",") if args.variants else None,
                          turns=args.turns, K=max(args.chunk, 1),
                          warm=args.warm)
-
-
-def device_busy(vo, frames, intr):
-    """(device ms/frame, kernels/frame) of `frames` through `vo`, from
-    torch.profiler's CUDA kernel events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for f, (ev, im) in enumerate(frames):
-            vo(f, ev, im, [True], intr)
-        vo.flush()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    n = len(frames)
-    return (sum(e.self_device_time_total for e in dev) / 1e3 / n,
-            sum(e.count for e in dev) / n)
 
 
 def train_batch(n_frames: int, ht: int, wd: int, device):
@@ -293,17 +275,9 @@ def main(argv=None):
         dt = min(dt, time.perf_counter() - t)
 
     mode = args.input_mode.lower()
-    if dev.type == "cuda":
-        name = torch.cuda.get_device_name(dev)
-        busy, calls = device_busy(vo, timed[:K] if K > 1 else timed[:4], intr)
-        print(f"{name}: {args.input_mode} {H}x{W} M={args.patches} "
-              f"{args.layout} chunk={K}: device busy {busy:.3f} ms/frame, "
-              f"{calls:.0f} kernels/frame, {1e3 * dt / n_frames:.3f} ms/frame")
-    else:
-        name = "cpu"
-        print(f"cpu: {args.input_mode} {H}x{W} M={args.patches} {args.layout} "
-              f"chunk={K}: {1e3 * dt / n_frames:.3f} ms/frame; device busy "
-              "not measured (no card)")
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"{name}: {args.input_mode} {H}x{W} M={args.patches} {args.layout} "
+          f"chunk={K}: {1e3 * dt / n_frames:.3f} ms/frame")
     print(json.dumps({"metric": f"vo_fps_{mode}_{H}x{W}",
                       "value": n_frames / dt, "unit": "frames/s",
                       "device": name}))

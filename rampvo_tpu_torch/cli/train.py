@@ -52,10 +52,13 @@ from ..parallel.mesh import (BATCH_KEYS, assert_replicated, make_mesh,
                              make_train_step)
 from ..train.forward import TrainForward
 from ..train.step import Trainer
+from ..utils.timing import span
 
 
 def collate(samples):
-    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    """The samples' arrays stacked by key (span `data.collate`)."""
+    with span("data.collate"):
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 def join_mesh(device: str):
@@ -131,16 +134,18 @@ class TrainLoop:
 
     def step(self, batch):
         """One optimizer step on this rank's `batch`; returns the float
-        metrics (averaged over the ranks)."""
+        metrics (averaged over the ranks). The batch's conversion and copy
+        to the device open the span `train.h2d`."""
         so = self.structure_only()
         if so not in self._steps:
             self._steps[so] = make_train_step(self.fwd, self.trainer,
                                               self.mesh, structure_only=so)
-        t = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS}
-        t = {k: v if k == "mask" else v.to(self.device,
-                                           non_blocking=True).float()
-             for k, v in t.items()}
-        t["poses"] = lops.se3_inv(t["poses"])          # world-to-camera
+        with span("train.h2d"):
+            t = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS}
+            t = {k: v if k == "mask" else v.to(self.device,
+                                               non_blocking=True).float()
+                 for k, v in t.items()}
+            t["poses"] = lops.se3_inv(t["poses"])      # world-to-camera
         _, m = self._steps[so](t, generator=self.gen)
         self.step_count += 1
         return {k: float(v) for k, v in m.items()}

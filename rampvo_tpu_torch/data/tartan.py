@@ -8,6 +8,11 @@ Numpy host pipeline producing fixed-shape channels-last windows:
   disps       [n_frames, H, W]
   intrinsics  [n_frames, 4]
   mask        [T_cap] bool          (exactly n_frames true entries)
+
+A window's host work opens spans (`utils.timing.span`, with tracing on):
+`data.window` (the window read), inside it `data.events` (each event
+stack), then `data.augment` and `data.normalize` (normalization, drop,
+padding and the casts).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from .augmentation import (
     set_random_sample_to_zero,
     set_random_sequence_to_zero,
 )
+from ..utils.timing import span
 from .event_handle import H5EventHandle
 from .loader import normalize_image
 from .representations import EventToStack, EventsToVoxelGrid
@@ -215,9 +221,10 @@ class TartanEventDataset:
         return inds, scene_id
 
     def _event_tensor(self, event, i_start, i_stop):
-        blob = event.get_between_idx(int(i_start), int(i_stop))
-        rep = self.representation(blob)  # [bins, H, W]
-        return np.transpose(rep, (1, 2, 0)).astype(np.float32)
+        with span("data.events"):
+            blob = event.get_between_idx(int(i_start), int(i_stop))
+            rep = self.representation(blob)  # [bins, H, W]
+            return np.transpose(rep, (1, 2, 0)).astype(np.float32)
 
     def load_window(self, index):
         """(ref: TartanEvent.py:245-325; both importing modes)"""
@@ -315,13 +322,23 @@ class TartanEventDataset:
         """(ref: TartanEvent.py:327-364). Returns a dict of fixed-shape
         numpy arrays; events/mask zero-padded to T_cap."""
         self.iter += 1
-        events, images, poses, disps, intrinsics, mask = self.load_window(idx)
+        with span("data.window"):
+            events, images, poses, disps, intrinsics, mask = \
+                self.load_window(idx)
 
         if self.aug_enabled:
-            events, images, poses, disps, intrinsics = self.augmentor(
-                events, images, poses, disps, intrinsics
-            )
+            with span("data.augment"):
+                events, images, poses, disps, intrinsics = self.augmentor(
+                    events, images, poses, disps, intrinsics
+                )
 
+        with span("data.normalize"):
+            return self._normalize(events, images, poses, disps, intrinsics,
+                                   mask)
+
+    def _normalize(self, events, images, poses, disps, intrinsics, mask):
+        """Scale, image normalization, data drop, padding to T_cap and the
+        casts of `__getitem__`'s window."""
         poses, disps = normalize_depth_and_poses(poses, disps)
         images = normalize_image(images, self.norm_img_to)
 

@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..utils.timing import span
 from .eval_fleet import shard_scenes as eval_shard_scenes
 
 
@@ -131,7 +132,9 @@ def make_train_step(fwd: Callable, trainer, mesh: Mesh | None = None,
     (B x world size); with a mesh the ranks' gradients are then summed and
     their losses and metrics averaged, before the trainer's global-norm
     clip and AdamW step. Returns the loss and the metrics (the mean over
-    the global batch)."""
+    the global batch). Spans (`utils.timing.span`, with tracing on):
+    `train.forward` and `train.backward` for each sample, `train.apply`
+    around the trainer's step."""
     reduce = mesh is not None and mesh.group is not None
     ranks = mesh.world_size if reduce else 1
 
@@ -143,12 +146,15 @@ def make_train_step(fwd: Callable, trainer, mesh: Mesh | None = None,
         loss, metrics = 0.0, {}
         for b in range(B):
             mask = batch["mask"][b]
-            lb, mb = fwd(*(batch[k][b] for k in BATCH_KEYS[:5]),
-                         mask.cpu() if torch.is_tensor(mask) else mask,
-                         structure_only=structure_only, generator=generator,
-                         draws=None if draws is None else draws[b])
+            with span("train.forward"):
+                lb, mb = fwd(*(batch[k][b] for k in BATCH_KEYS[:5]),
+                             mask.cpu() if torch.is_tensor(mask) else mask,
+                             structure_only=structure_only,
+                             generator=generator,
+                             draws=None if draws is None else draws[b])
             if lb.requires_grad:        # not under ablate "ba": no gradient
-                (lb / (B * ranks)).backward()
+                with span("train.backward"):
+                    (lb / (B * ranks)).backward()
             loss = loss + lb.detach() / B
             for k, v in mb.items():
                 metrics[k] = metrics.get(k, 0.0) + v.detach() / B
@@ -161,7 +167,8 @@ def make_train_step(fwd: Callable, trainer, mesh: Mesh | None = None,
             all_reduce_sum(mesh, [p.grad for p in trainer.params] + [scalars])
             scalars = scalars / ranks
             loss, metrics = scalars[0], dict(zip(names, scalars[1:]))
-        trainer.apply()
+        with span("train.apply"):
+            trainer.apply()
         return loss, metrics
 
     return step

@@ -34,6 +34,14 @@ through
 `ops.singlescale_kernels.lstm_carry_fold_cm` (SingleScale); the motion
 probe's M-edge correlation is the plain exact `ops.corr.corr`, as in the
 reference (XLA there).
+
+Both forms open the same seven stage spans (`STAGES`, `utils.timing.span`:
+profiler spans with tracing on, nothing otherwise): the encoder with its
+heads; patch selection and extraction; the commit with the edge append
+(the probe gate too, before initialization); the edge table, reprojection
+and correlation; the update network; the weight filter, windowed BA and
+write-back; the keyframe step. A graph capture maps its nodes to them
+(vo/graph.py).
 """
 
 from __future__ import annotations
@@ -68,10 +76,14 @@ from ..ops.singlescale_kernels import (
     singlescale_init_state,
     singlescale_weights,
 )
+from ..utils.timing import span
 from .config import VOConfig
 from .state import VOState, edge_table, host_of_row, init_state
 
 DIM = 384
+STAGES = ("vo.frame.encoder", "vo.frame.patchify", "vo.frame.commit",
+          "vo.frame.corr", "vo.frame.update_net", "vo.frame.ba",
+          "vo.frame.keyframe")
 INIT_FRAMES = 8      # keyframes before the init burst (Ramp_vo.py:389)
 INIT_UPDATES = 12    # updates of the init burst
 
@@ -423,32 +435,38 @@ def _update(cfg: VOConfig, update_fn, state: VOState, oracle=None,
     `_edge_corr_ctx_lattice`) computes the correlation."""
     M, PW = cfg.M, cfg.POSE_WINDOW
     n = state.n
-    ii, jj, kk, valid = edge_table(cfg, n, state.cell_valid)
-    if oracle is None:
-        target0, corr_in, ctx = _edge_corr_ctx_lattice(cfg, state, corr_fn)
-        net, (delta, weight) = update_fn(
-            state.net.reshape(-1, DIM), ctx, corr_in, ii, jj, kk, valid,
-            (cfg.NI, cfg.T, M))
-    else:
-        coords = _reproject_lattice_edges(cfg, state)
-        P = coords.shape[1]
-        delta, weight = oracle(state, ii, jj, kk, coords)
-        target0, net = coords[:, P // 2, P // 2, :], None
-    target = target0 + delta
-    weight = filter_features(weight, target, state.hw4)
-    weight = torch.where(valid[:, None], weight, torch.zeros_like(weight))
+    with span("vo.frame.corr"):
+        ii, jj, kk, valid = edge_table(cfg, n, state.cell_valid)
+        if oracle is None:
+            target0, corr_in, ctx = _edge_corr_ctx_lattice(cfg, state,
+                                                           corr_fn)
+        else:
+            coords = _reproject_lattice_edges(cfg, state)
+    with span("vo.frame.update_net"):
+        if oracle is None:
+            net, (delta, weight) = update_fn(
+                state.net.reshape(-1, DIM), ctx, corr_in, ii, jj, kk, valid,
+                (cfg.NI, cfg.T, M))
+        else:
+            P = coords.shape[1]
+            delta, weight = oracle(state, ii, jj, kk, coords)
+            target0, net = coords[:, P // 2, P // 2, :], None
+    with span("vo.frame.ba"):
+        target = target0 + delta
+        weight = filter_features(weight, target, state.hw4)
+        weight = torch.where(valid[:, None], weight, torch.zeros_like(weight))
 
-    posew2, dwin2, win_g, k = _window_ba(cfg, state, target, weight, ii, jj,
-                                         kk, valid)
-    # write back the k live window frames; with a device k, window rows
-    # past it repeat row k - 1 (the same value written twice)
-    live = (slice(0, k) if isinstance(k, int)
-            else torch.minimum(torch.arange(PW, device=win_g.device), k - 1))
-    state.poses[win_g[live]] = posew2[live]
-    state.pat_d[win_g[live]] = dwin2.reshape(PW, M)[live]
-    if net is not None:
-        state.net.copy_(net.reshape(state.net.shape))
-    state.last_weight.copy_(weight.reshape(state.last_weight.shape))
+        posew2, dwin2, win_g, k = _window_ba(cfg, state, target, weight, ii,
+                                             jj, kk, valid)
+        # write back the k live window frames; with a device k, window rows
+        # past it repeat row k - 1 (the same value written twice)
+        live = (slice(0, k) if isinstance(k, int) else
+                torch.minimum(torch.arange(PW, device=win_g.device), k - 1))
+        state.poses[win_g[live]] = posew2[live]
+        state.pat_d[win_g[live]] = dwin2.reshape(PW, M)[live]
+        if net is not None:
+            state.net.copy_(net.reshape(state.net.shape))
+        state.last_weight.copy_(weight.reshape(state.last_weight.shape))
 
 
 def _window_ba(cfg: VOConfig, state: VOState, target, weight, ii, jj, kk,
@@ -750,39 +768,43 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
         M = cfg.M
         mk = np.asarray(mask).reshape(-1).astype(bool)
         sup = int(np.argmax(mk)) if mk.any() else len(mk) - 1
-        if not event_bias:
-            if sel is None:
-                sel = selection_draws(cfg.GRADIENT_BIAS, 1, M,
-                                      images.shape[1], images.shape[2], gen)
-            sel = tuple(torch.as_tensor(x, device=dev) for x in sel)
-        gmap, ictx, patches_new, clr = patches(events[sup:sup + 1], images,
-                                               fmap, imap, sel)
-        if rand_d is None:
-            rand_d = torch.rand(M, generator=gen)
-        _commit(cfg, state, fmap, gmap, ictx, patches_new, clr, intrinsics,
-                rand_d)
+        with span("vo.frame.patchify"):
+            if not event_bias:
+                if sel is None:
+                    sel = selection_draws(cfg.GRADIENT_BIAS, 1, M,
+                                          images.shape[1], images.shape[2],
+                                          gen)
+                sel = tuple(torch.as_tensor(x, device=dev) for x in sel)
+            gmap, ictx, patches_new, clr = patches(events[sup:sup + 1],
+                                                   images, fmap, imap, sel)
+        with span("vo.frame.commit"):
+            if rand_d is None:
+                rand_d = torch.rand(M, generator=gen)
+            _commit(cfg, state, fmap, gmap, ictx, patches_new, clr,
+                    intrinsics, rand_d)
 
-        # motion-probe gate (pre-init only, Ramp_vo.py:384-387)
-        if not state.initialized and state.n > 0:
-            med = _probe_median(cfg, probe_fn, state)
-            if bool(med < cfg.PROBE_THRESH):
-                g = state.counter - 1
-                state.delta_parent[g] = g - 1
-                state.delta_dP[g] = lops.se3_identity((), device=dev)
-                s = state.slotmap[state.n]
-                state.slot_free[s.clamp(0, cfg.MEM - 1)] = True
-                state.slotmap[state.n] = -1
-                return state
+            # motion-probe gate (pre-init only, Ramp_vo.py:384-387)
+            if not state.initialized and state.n > 0:
+                med = _probe_median(cfg, probe_fn, state)
+                if bool(med < cfg.PROBE_THRESH):
+                    g = state.counter - 1
+                    state.delta_parent[g] = g - 1
+                    state.delta_dP[g] = lops.se3_identity((), device=dev)
+                    s = state.slotmap[state.n]
+                    state.slot_free[s.clamp(0, cfg.MEM - 1)] = True
+                    state.slotmap[state.n] = -1
+                    return state
 
-        state.n += 1
-        _append_edges(cfg, state)
+            state.n += 1
+            _append_edges(cfg, state)
         if not state.initialized and state.n == INIT_FRAMES:
             state.initialized = True
             for _ in range(INIT_UPDATES):
                 _update(cfg, update_fn, state, oracle)
         elif state.initialized:
             _update(cfg, update_fn, state, oracle)
-            _keyframe(cfg, state)
+            with span("vo.frame.keyframe"):
+                _keyframe(cfg, state)
         return state
 
     def vo_frame(state, events, images, mask, intrinsics, rand_d=None,
@@ -791,7 +813,8 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
         images = torch.as_tensor(images, device=dev).float()
         intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
                                      device=dev)
-        fmap, imap = encode_fn(events, images, mask, state.enc)
+        with span("vo.frame.encoder"):
+            fmap, imap = encode_fn(events, images, mask, state.enc)
         return frame_post(state, events, images, mask, intrinsics, fmap, imap,
                           rand_d, sel_draws)
 
@@ -807,15 +830,19 @@ def make_vo_frame(cfg: VOConfig, vonet: VONet, device="cuda", seed: int = 0,
         if not event_bias and sel is None:
             raise ValueError("the branchless frame takes its selection "
                              "draws on the device (sel)")
-        fmap, imap = encode_fn(events, images, one, state.enc)
-        gmap, ictx, patches_new, clr = patches(events, images, fmap, imap,
-                                               sel)
-        _commit(cfg, state, fmap, gmap, ictx, patches_new, clr, intrinsics,
-                None)
-        state.n.add_(1)
-        _append_edges_dev(cfg, state)
+        with span("vo.frame.encoder"):
+            fmap, imap = encode_fn(events, images, one, state.enc)
+        with span("vo.frame.patchify"):
+            gmap, ictx, patches_new, clr = patches(events, images, fmap,
+                                                   imap, sel)
+        with span("vo.frame.commit"):
+            _commit(cfg, state, fmap, gmap, ictx, patches_new, clr,
+                    intrinsics, None)
+            state.n.add_(1)
+            _append_edges_dev(cfg, state)
         _update(cfg, update_fn, state)
-        _keyframe_dev(cfg, state)
+        with span("vo.frame.keyframe"):
+            _keyframe_dev(cfg, state)
         return state
 
     vo_frame.encode_fn = encode_fn
@@ -933,15 +960,12 @@ class RampVO:
         """Run the buffered frames (chunked mode)."""
         buf, self._buf = self._buf, []
         if len(buf) == self.chunk and self.state.initialized:
-            def stack(xs):
-                return torch.stack([torch.as_tensor(x, device=self.device)
-                                    for x in xs])
-
+            # the chunk stacks the frames (in its vo.chunk.stage span)
             sel = None
             if all(b[5] is not None for b in buf):
-                sel = [stack([b[5][i] for b in buf]) for i in (0, 1)]
-            self._vo_chunk(self.state, stack([b[0] for b in buf]),
-                           stack([b[1] for b in buf]), buf[0][3], sel)
+                sel = [[b[5][i] for b in buf] for i in (0, 1)]
+            self._vo_chunk(self.state, [b[0] for b in buf],
+                           [b[1] for b in buf], buf[0][3], sel)
             return
         for events, image, mask, intrinsics, rand_d, sel in buf:
             self._vo_frame(self.state, events, image, mask, intrinsics,

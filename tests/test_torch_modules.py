@@ -396,6 +396,7 @@ def test_port_imports_no_jax():
                 "data.event_sequence", "utils.seeding", "utils.timing",
                 "utils.viz", "parallel.mesh", "cli.bench",
                 "cli.real_ckpt_eval", "probes.frame", "probes.breakdown",
+                "probes.stages",
                 "data.synthetic", "cli.overfit_synthetic",
                 "cli.train_hw_run"):
         assert "rampvo_tpu_torch." + mod in lines, mod
