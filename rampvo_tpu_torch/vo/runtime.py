@@ -213,13 +213,14 @@ def _commit(cfg: VOConfig, state: VOState, fmap, gmap, imap_vec,
     _put(state.colors, g, clr[0])
 
     # free the ring slots of frames that aged out of the feature window
-    # (slot MEM takes the writes of the logical frames that hold none)
+    # (slot MEM takes the writes of the logical frames that hold none).
+    # Every write is the same True, so a plain scatter needs no sort or
+    # atomics: repeated slots give the same result in any order.
     old = torch.arange(L, device=dev) < n - cfg.FEATURE_WINDOW
     sm = state.slotmap
-    freed = torch.zeros(MEM + 1, dtype=torch.int32, device=dev)
-    freed.index_put_((torch.where(old & (sm >= 0), sm, MEM),),
-                     torch.ones_like(sm, dtype=torch.int32), accumulate=True)
-    state.slot_free |= freed[:MEM] > 0
+    freed = torch.zeros(MEM + 1, dtype=torch.bool, device=dev)
+    freed.scatter_(0, torch.where(old & (sm >= 0), sm, MEM), True)
+    state.slot_free |= freed[:MEM]
     sm.masked_fill_(old, -1)
 
     # allocate the first free slot for the new frame and fill the rings
